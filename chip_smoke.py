@@ -14,7 +14,21 @@ Phases, each of which raises on failure:
      the plain pool, TF32 off), bf16 finite and timed both ways, kernel
      launches counted on the main path and in a profiler trace;
   5. streaming inference over 9 frames at 1024^2 in bf16, chunk 4, its
-     kernel launches counted and its rotations checked orthonormal.
+     kernel launches counted and its rotations checked orthonormal;
+  6. K1/K2 (reprojection loss forward/backward) against their plain
+     versions at the training step's shapes, bf16 and fp32, and B=2 bf16,
+     with exact frame ties, timed beside the plain versions and the ATen
+     path (reprojection_loss + amin, forward and autograd backward);
+  7. K3 as the data-grad (pad 2 and 1) and K4 (weight-grad) against their
+     plain versions at every K3 site shape of the step, bf16 and fp32,
+     timed beside cuDNN's conv2d_input / conv2d_weight;
+  8. the flagship training step at 1024^2 (bench.py's configuration: road
+     branch, B=1, Adam, clip 35), random weights from a seed: fp32 with the
+     kernels on against off (losses and gradients), bf16 for 20 steps on
+     one batch (finite, falling loss, BatchNorm statistics moving),
+     frames/s with the kernels on and off in turns, the kernel launches of
+     one step from the counters and a profiler trace, its device busy time,
+     idle share and peak memory.
 
 Prints the card line, a JSON line describing every kernel, and last the
 device line. Full results go to chiprun_out/chip_smoke.json. Exits non-zero
@@ -38,6 +52,22 @@ HW, OCC = 1024, 256
 PEAK_BF16, PEAK_FP32, HBM_BYTES_S = 989e12, 67e12, 3.35e12
 K3_SRC = "jperceiver_tpu_torch/ops/cuda/csrc/conv3x3.cu"
 K5_SRC = "jperceiver_tpu_torch/ops/cuda/csrc/maxpool5x5.cu"
+K4_SRC = "jperceiver_tpu_torch/ops/cuda/csrc/conv3x3_wgrad.cu"
+K12_SRC = "jperceiver_tpu_torch/ops/cuda/csrc/reproj.cu"
+# The training step of bench.py:124-137, at the flagship size.
+TRAIN_CFG = dict(
+    type="static", split="odometry", frame_ids=[0, -1, 1], scales=[0, 1, 2, 3],
+    height=HW, width=HW, occ_map_size=OCC, num_class=2, min_depth=0.1,
+    max_depth=100.0, automask=True, disp_norm=True, smoothness_weight=1e-3,
+    scale_weight=0.1, static_weight=5.0, dynamic_weight=15.0, loss_type="iou",
+    loss_sum=3, loss_weight=20, loss2_weight=20, loss_weightS=20, loss2_weightS=20,
+    cgt_label_hw=(375, 1242), optimizer=dict(type="Adam", lr=1e-4, weight_decay=0),
+    optimizer_config=dict(grad_clip=dict(max_norm=35, norm_type=2)),
+    lr_config=dict(policy="step", warmup=None, step=[50]))
+# Operations a pixel, channel and frame of the fused reprojection loss (3x3
+# separable sums of x, x^2, xy; the SSIM and Charbonnier terms), forward
+# and backward (the backward recomputes the forward and gathers 3 fields).
+REPROJ_OPS_FWD, REPROJ_OPS_BWD = 40.0, 120.0
 
 
 def log(msg: str) -> None:
@@ -156,11 +186,11 @@ def phase_k5(torch) -> dict:
             "per_forward": dict(tot), "bound_by": "bytes"}
 
 
-def build_model(torch, dtype):
+def build_model(torch, dtype, branches="both"):
     from jperceiver_tpu_torch.models import JPerceiver
 
     torch.manual_seed(0)
-    model = JPerceiver(occ_map_size=OCC, dtype=dtype, branches="both")
+    model = JPerceiver(occ_map_size=OCC, dtype=dtype, branches=branches)
     g = torch.Generator().manual_seed(1)
     for m in model.modules():
         if isinstance(m, torch.nn.Conv2d):
@@ -336,7 +366,7 @@ def phase_stream(torch, n_k3: int) -> dict:
         seconds.append(time.perf_counter() - t0)
     # Two chunks of 4 frames, each one batched eval forward; the pose net
     # has no K3 site.
-    if launches != {"conv3x3": 2 * n_k3, "maxpool5x5": 2 * 16}:
+    if launches != {k: 0 for k in launches} | {"conv3x3": 2 * n_k3, "maxpool5x5": 2 * 16}:
         raise AssertionError(f"streaming launches {launches}")
     eye = torch.eye(3, device="cuda")
     orth = {}
@@ -352,6 +382,354 @@ def phase_stream(torch, n_k3: int) -> dict:
            "seconds": seconds, "orthonormal_err": orth,
            "shapes": shapes, "launches": launches}
     log(f"streaming {res}")
+    return res
+
+
+def _levels(torch, g, shape):
+    """Uniform image levels k/256 in [0, 1]: 8-bit pixels, exact in bf16 and
+    fp32, so the SSIM window sums are exact in both versions. On arbitrary
+    fp32 values, a window of near-zero variance makes the SSIM gradient
+    depend on the order of those sums (measured on the H100 at 1024^2: 2.8%
+    of max |grad| between K2 and its plain version at such windows)."""
+    return torch.round(256 * torch.rand(shape, device="cuda", generator=g)) / 256
+
+
+def _tie_preds(torch, g, shape, dtype):
+    """Random preds whose frame 1 copies frame 0 over the left half of the
+    image: exact frame ties there."""
+    p = _levels(torch, g, shape)
+    if shape[2] > 1:
+        p[:, :, 1, ..., : shape[-1] // 2] = p[:, :, 0, ..., : shape[-1] // 2]
+    return p.to(dtype)
+
+
+def phase_reproj(torch) -> dict:
+    from jperceiver_tpu_torch.ops.cuda.reproj import (_bwd, _fwd, _reproj_bwd_plain,
+                                                      reproj_min_plain)
+    from jperceiver_tpu_torch.ops.photometric import reprojection_loss
+
+    F = torch.nn.functional
+    g = torch.Generator(device="cuda").manual_seed(3)
+    bf16, f32 = torch.bfloat16, torch.float32
+    # (shape, dtype, role in one training step): the warped stack and the
+    # automask identity pairs at B=1 in bf16 (the flagship's operands), the
+    # warped stack in fp32, and B=2 in bf16.
+    cases = [((4, 1, 2, 3, HW, HW), bf16, "warped"), ((2, 1, 1, 3, HW, HW), bf16, "identity"),
+             ((4, 1, 2, 3, HW, HW), f32, None), ((4, 2, 2, 3, HW, HW), bf16, None)]
+    rows, tot = [], Counter()
+    err_f = err_b = 0.0
+    for shape, dtype, role in cases:
+        s_, b_, f_ = shape[:3]
+        preds = _tie_preds(torch, g, shape, dtype)
+        targ = _levels(torch, g, (b_, 3, HW, HW)).to(dtype)
+        cot = torch.randn((s_, b_, HW, HW), device="cuda", generator=g)
+        out, ref = _fwd(preds, targ), reproj_min_plain(preds, targ)
+        torch.cuda.synchronize()
+        ef = (out - ref).abs().max().item()
+        # Both sum the same fp32 statistics in another order; values are O(1).
+        row = {"shape": list(shape), "dtype": str(dtype), "role": role,
+               "fwd_max_abs_err": ef, "fwd_tol": 2e-5}
+        if not ef <= 2e-5:
+            raise AssertionError(f"K1 disagrees with its plain version: {row}")
+        err_f = max(err_f, ef)
+        if f_ > 1:
+            d, dref = _bwd(preds, targ, cot), _reproj_bwd_plain(preds, targ, cot)
+            # A frame-min decided by less than the two versions' rounding may
+            # route a pixel's cotangent to the other frame; the gradient of a
+            # pixel reads the routing within 2 pixels of it. Exact ties (the
+            # copied half) are ties in both and stay in the comparison.
+            rl = reprojection_loss(preds.float(), targ.float()[:, None])[:, :, :, 0]
+            gap = (rl[:, :, 0] - rl[:, :, 1]).abs()
+            amb = ((gap > 0) & (gap < 1e-5)).float().reshape(s_ * b_, 1, HW, HW)
+            keep = (F.max_pool2d(amb, 5, 1, 2) == 0).reshape(s_, b_, 1, 1, HW, HW)
+            diff = ((d.float() - dref.float()).abs() * keep).max().item()
+            scale = dref.float().abs().max().item()
+            tol = (1e-4 if dtype == f32 else 1e-2) * scale
+            ties = (rl[:, :, 0] == rl[:, :, 1]).sum().item()
+            row.update(bwd_max_abs_err=diff, bwd_tol=tol, exact_tie_pixels=ties,
+                       near_tie_pixels_masked=int(amb.sum().item()),
+                       pixels_masked=int((~keep).sum().item()))
+            if not diff <= tol:
+                raise AssertionError(f"K2 disagrees with its plain version: {row}")
+            err_b = max(err_b, diff)
+            del rl, gap, amb, keep, d, dref
+        if role is not None:
+            n_in = preds.numel() * preds.element_size() + targ.numel() * targ.element_size()
+            n_pix = preds.numel()  # pixels x channels x frames x scales
+            bnd, by = bound_ms(n_in + 4 * s_ * b_ * HW * HW, REPROJ_OPS_FWD * n_pix, PEAK_FP32)
+
+            def lib_fwd():
+                return reprojection_loss(preds, targ[:, None]).amin(2)[:, :, 0]
+
+            row.update(bound_ms=bnd, bound_by=by,
+                       ms=time_ms(torch, lambda: _fwd(preds, targ), reps=10),
+                       plain_ms=time_ms(torch, lambda: reproj_min_plain(preds, targ), reps=5),
+                       library_ms=time_ms(torch, lib_fwd, reps=5))
+            for k in ("ms", "plain_ms", "library_ms", "bound_ms"):
+                tot["k1_" + k] += row[k]
+            if role == "warped":
+                pg = preds.detach().requires_grad_()
+
+                def lib_fwd_bwd():
+                    reprojection_loss(pg, targ[:, None]).amin(2)[:, :, 0].backward(cot)
+
+                bnd, by = bound_ms(2 * n_in + 4 * s_ * b_ * HW * HW,
+                                   REPROJ_OPS_BWD * n_pix, PEAK_FP32)
+                row.update(bwd_bound_ms=bnd, bwd_bound_by=by,
+                           bwd_ms=time_ms(torch, lambda: _bwd(preds, targ, cot), reps=10),
+                           bwd_plain_ms=time_ms(
+                               torch, lambda: _reproj_bwd_plain(preds, targ, cot), reps=5),
+                           bwd_library_ms=time_ms(torch, lib_fwd_bwd, reps=5) - row["library_ms"])
+                for k in ("ms", "plain_ms", "library_ms", "bound_ms"):
+                    tot["k2_" + k] += row["bwd_" + k]
+                tot["bound_by_fwd"], tot["bound_by_bwd"] = row["bound_by"], by
+        rows.append(row)
+        log(f"K1/K2 {row}")
+        del preds, targ, cot, out, ref
+        torch.cuda.empty_cache()
+    return {"rows": rows, "k1_max_abs_err": err_f, "k2_max_abs_err": err_b,
+            "per_step": dict(tot)}
+
+
+def phase_conv_bwd(torch, sites) -> dict:
+    """K3 as the data-grad and K4 at every K3 site shape of the step."""
+    from jperceiver_tpu_torch.ops.cuda import conv3x3_plain, conv3x3_wgrad, conv3x3_wgrad_plain
+    from jperceiver_tpu_torch.ops.cuda.conv3x3 import _conv
+
+    grad = torch.nn.grad
+    g = torch.Generator(device="cuda").manual_seed(4)
+    shapes = Counter((s["c_in"], s["c_out"], s["h"], s["w"], s["pad"]) for s in sites if s["k3"])
+    rows, tot = [], Counter()
+    err_d = err_w = 0.0
+    ops_t = bytes_t = 0.0
+    for (c, o, h, w, pad), count in sorted(shapes.items()):
+        for dtype in (torch.bfloat16, torch.float32):
+            hin, win = h + 2 - 2 * pad, w + 2 - 2 * pad
+            x = torch.randn(1, c, hin, win, device="cuda", generator=g).to(dtype)
+            x = x.contiguous(memory_format=torch.channels_last)
+            wt = (torch.randn(o, c, 3, 3, device="cuda", generator=g) / math.sqrt(9 * c)).to(dtype)
+            gy = torch.randn(1, o, h, w, device="cuda", generator=g).to(dtype)
+            gy = gy.contiguous(memory_format=torch.channels_last)
+            wflip = wt.flip(2, 3).transpose(0, 1)
+            dx = _conv(gy, wflip, None, 2 - pad, "conv3x3_dgrad")
+            dx_ref = conv3x3_plain(gy, wflip, None, 2 - pad)
+            dw = conv3x3_wgrad(x, gy, pad)
+            dw_ref = conv3x3_wgrad_plain(x, gy, pad)
+            torch.cuda.synchronize()
+            ed = (dx.float() - dx_ref.float()).abs().max().item()
+            sd = max(1.0, dx_ref.float().abs().max().item())
+            ew = (dw - dw_ref).abs().max().item()
+            sw = dw_ref.abs().max().item()
+            # dgrad: as K3's forward (fp32 order; one bf16 rounding). K4: fp32
+            # sums of 9C x O over M pixels in another order, both dtypes.
+            row = {"c_in": c, "c_out": o, "h": h, "w": w, "pad": pad, "dgrad_pad": 2 - pad,
+                   "dtype": str(dtype), "dgrad_max_abs_err": ed,
+                   "dgrad_tol": (1e-4 if dtype == torch.float32 else 1e-2) * sd,
+                   "wgrad_max_abs_err": ew, "wgrad_tol": 1e-4 * sw,
+                   "dx_shape": list(dx.shape)}
+            if not (ed <= row["dgrad_tol"] and tuple(dx.shape) == tuple(x.shape)):
+                raise AssertionError(f"K3 data-grad disagrees with its plain version: {row}")
+            if not (ew <= row["wgrad_tol"] and tuple(dw.shape) == (o, c, 3, 3)):
+                raise AssertionError(f"K4 disagrees with its plain version: {row}")
+            err_d, err_w = max(err_d, ed), max(err_w, ew)
+            if dtype == torch.float32:
+                # Distance to float64 (cuDNN in fp64) of the kernels and of
+                # cuDNN in fp32, at the same inputs.
+                x64, w64, g64 = x.double(), wt.double(), gy.double()
+                dx64 = grad.conv2d_input(x.shape, w64, g64, padding=pad)
+                dw64 = grad.conv2d_weight(x64, wt.shape, g64, padding=pad)
+                row.update(
+                    dgrad_err_f64=(dx.double() - dx64).abs().max().item(),
+                    dgrad_library_err_f64=(grad.conv2d_input(x.shape, wt, gy, padding=pad)
+                                           .double() - dx64).abs().max().item(),
+                    wgrad_err_f64=(dw.double() - dw64).abs().max().item(),
+                    wgrad_library_err_f64=(grad.conv2d_weight(x, wt.shape, gy, padding=pad)
+                                           .double() - dw64).abs().max().item())
+                del x64, w64, g64, dx64, dw64
+            if dtype == torch.bfloat16:
+                item = x.element_size()
+                n_ops = 2.0 * h * w * o * 9 * c
+                bd, byd = bound_ms((o * h * w + o * c * 9 + c * hin * win) * item, n_ops, PEAK_BF16)
+                bw, byw = bound_ms((c * hin * win + o * h * w) * item + 4 * o * c * 9, n_ops,
+                                   PEAK_BF16)
+                row.update(
+                    sites_per_step=count, dgrad_bound_ms=bd, wgrad_bound_ms=bw,
+                    dgrad_ms=time_ms(torch, lambda: _conv(gy, wflip, None, 2 - pad, "conv3x3_dgrad"), reps=10),
+                    dgrad_plain_ms=time_ms(torch, lambda: conv3x3_plain(gy, wflip, None, 2 - pad), reps=5),
+                    dgrad_library_ms=time_ms(torch, lambda: grad.conv2d_input(x.shape, wt, gy, padding=pad), reps=10),
+                    wgrad_ms=time_ms(torch, lambda: conv3x3_wgrad(x, gy, pad), reps=10),
+                    wgrad_plain_ms=time_ms(torch, lambda: conv3x3_wgrad_plain(x, gy, pad), reps=5),
+                    wgrad_library_ms=time_ms(torch, lambda: grad.conv2d_weight(x, wt.shape, gy, padding=pad), reps=10))
+                for k in ("ms", "plain_ms", "library_ms", "bound_ms"):
+                    tot["dgrad_" + k] += count * row["dgrad_" + k]
+                    tot["wgrad_" + k] += count * row["wgrad_" + k]
+                ops_t += count * n_ops / PEAK_BF16
+                bytes_t += count * (c * hin * win + o * h * w) * item / HBM_BYTES_S
+            rows.append(row)
+            log(f"K3-dgrad/K4 {row}")
+    return {"rows": rows, "dgrad_max_abs_err": err_d, "wgrad_max_abs_err": err_w,
+            "per_step": dict(tot), "bound_by": "bytes" if bytes_t >= ops_t else "operations"}
+
+
+def _grads(model):
+    return {n: p.grad.detach().clone() for n, p in model.named_parameters()}
+
+
+def phase_train(torch) -> dict:
+    import copy
+
+    from jperceiver_tpu_torch.data import synthetic_batch
+    from jperceiver_tpu_torch.engine import make_train_step
+    from jperceiver_tpu_torch.engine.trainer import batch_to
+    from jperceiver_tpu_torch.models import set_kernels
+    from jperceiver_tpu_torch.ops import cuda as kernels
+
+    batch = batch_to(synthetic_batch(1, HW, HW, OCC, seed=0), "cuda")
+    res = {}
+
+    # fp32, kernels on (K1/K2, K3/K4, K5) against off (the unfused
+    # photometric path, cuDNN, the plain pool), from the same weights, batch
+    # and generator seed; fp32 operands for the reprojection kernels. Both
+    # are held to the same step in float64 (kernels off; the frames and the
+    # photometric loss in float64 too, the sampling coordinates fp32 as the
+    # package writes them): at 1024^2 many gradients rest on cancellations
+    # that fp32 resolves only roughly, so the kernels' route must be as close
+    # to float64 as the library's, up to 1e-3 of each gradient's own scale
+    # and 1e-6 of the step's largest gradient.
+    model = build_model(torch, torch.float32, "road")
+    init = copy.deepcopy(model.state_dict())
+    runs = {}
+    for name, dtype, on in (("on", torch.float32, True), ("off", torch.float32, False),
+                            ("f64", torch.float64, False)):
+        run_batch = batch
+        if dtype == torch.float64:
+            model = build_model(torch, dtype, "road").double()
+            run_batch = {k: v.double() if v.is_floating_point() else v for k, v in batch.items()}
+        model.load_state_dict(init)
+        step = make_train_step(model, dict(TRAIN_CFG, use_pallas_reproj=on,
+                                           pallas_reproj_bf16=False), seed=0)
+        set_kernels(model, on, on, on)
+        probes = []
+        hooks = cct_probe(torch, model, probes)
+        m = step(run_batch)
+        for h in hooks:
+            h.remove()
+        runs[name] = ({k: float(v) for k, v in m.items()}, _grads(model), probes)
+        del step
+    (m_on, g_on, p_on), (m_off, g_off, p_off), (m64, g64, _) = (runs[k] for k in ("on", "off", "f64"))
+    flips = [int((a[0] != b[0]).sum()) for a, b in zip(p_on, p_off)]
+    loss_cmp = {k: {"on": m_on[k], "off": m_off[k], "f64": m64[k]} for k in m64}
+    rows = []
+    for n, ref in g64.items():
+        e_on = (g_on[n].double() - ref).abs().max().item()
+        e_off = (g_off[n].double() - ref).abs().max().item()
+        rows.append([n, e_on, e_off, ref.abs().max().item()])
+    big = max(r[3] for r in rows)
+    for r in rows:
+        r.insert(0, r[1] / (3 * r[2] + 1e-3 * r[3] + 1e-6 * big))
+    rows.sort(reverse=True)
+    res["fp32_on_vs_off"] = {"losses": loss_cmp, "cct_argmax_flips": flips,
+                             "largest_grad_f64": big,
+                             "worst_grads": [list(r) for r in rows[:8]],
+                             "grad_err_on_max": max(r[2] for r in rows),
+                             "grad_err_off_max": max(r[3] for r in rows)}
+    log(f"train fp32 on vs off: {json.dumps(res['fp32_on_vs_off'])}")
+    for k, v in loss_cmp.items():
+        # The kernels' route within 1e-4 of float64 or no farther than the
+        # library's (grad_norm is a gradient quantity).
+        d_on, d_off = abs(v["on"] - v["f64"]), abs(v["off"] - v["f64"])
+        if not (math.isfinite(v["on"]) and d_on <= 1e-4 * max(1.0, abs(v["f64"])) + 3 * d_off):
+            raise AssertionError(f"fp32 train step, kernels on vs off, {k}: {v}")
+    if rows[0][0] > 1:
+        raise AssertionError(f"fp32 train step gradients, kernels on farther from float64 "
+                             f"than off: {rows[:4]}")
+    del model, init, runs, g_on, g_off, g64
+    torch.cuda.empty_cache()
+
+    # bf16: the flagship step. 20 steps on one batch.
+    model = build_model(torch, torch.bfloat16, "road")
+    bn = model.DepthEncoder.encoder.bn1
+    stats0 = (bn.running_mean.clone(), bn.running_var.clone())
+    step = make_train_step(model, TRAIN_CFG, seed=1)
+    losses = []
+    for _ in range(20):
+        losses.append(float(step(batch)["loss"]))
+    moved = max((bn.running_mean.cpu() - stats0[0]).abs().max().item(),
+                (bn.running_var.cpu() - stats0[1]).abs().max().item())
+    res["bf16_losses"] = losses
+    res["bn_running_stat_change"] = moved
+    log(f"train bf16 losses {losses}; BN stats moved by {moved}")
+    if not (all(math.isfinite(v) for v in losses) and losses[-1] < losses[0] and moved > 0):
+        raise AssertionError(f"bf16 training: losses {losses}, BN change {moved}")
+
+    # Frames/s, kernels on and off in turns (host clock, synchronized; B=1).
+    step_off = make_train_step(model, dict(TRAIN_CFG, use_pallas_reproj=False), seed=2)
+    step_on = make_train_step(model, TRAIN_CFG, seed=3)
+
+    def turn(on: bool, n: int = 5) -> list[float]:
+        set_kernels(model, on, on, on)
+        fn = step_on if on else step_off
+        fn(batch)
+        out = []
+        for _ in range(n):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn(batch)
+            torch.cuda.synchronize()
+            out.append(time.perf_counter() - t0)
+        return out
+
+    samples = {"on": [], "off": []}
+    turns = []
+    for on in (True, False, False, True, True, False, False, True):
+        v = turn(on)
+        samples["on" if on else "off"] += v
+        turns.append(("on" if on else "off", 1.0 / sorted(v)[len(v) // 2]))
+    fps = {"turn_frames_per_s": turns}
+    for k, v in samples.items():
+        v = sorted(v)
+        fps[k] = {"n": len(v), "median_frames_per_s": 1.0 / v[len(v) // 2],
+                  "median_ms": 1e3 * v[len(v) // 2], "min_ms": 1e3 * v[0], "max_ms": 1e3 * v[-1]}
+    res["bf16_frames_per_s"] = fps
+    log(f"train bf16 frames/s {fps}")
+
+    # The main path: counts set to 0 just before one step, read just after.
+    set_kernels(model, True, True, True)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    m = step_on(batch)
+    torch.cuda.synchronize()
+    res["launches"] = kernels.launch_counts()
+    res["peak_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    res["metrics"] = {k: float(v) for k, v in m.items()}
+
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        step_on(batch)
+        torch.cuda.synchronize()
+    dev = [e for e in prof.events() if e.device_type.name == "CUDA"]
+    names = Counter(e.name for e in dev)
+    busy = Counter()
+    for e in dev:
+        busy[e.name] += e.time_range.elapsed_us() / 1e3
+    span_ms = (max(e.time_range.end for e in dev)
+               - min(e.time_range.start for e in dev)) / 1e3 if dev else 0.0
+    busy_ms = sum(busy.values())
+
+    def count(sub):
+        return sum(n for k, n in names.items() if sub in k)
+
+    res["profiler"] = {
+        "k1": count("reproj_fwd"), "k2": count("reproj_bwd"), "k3": count("conv3x3_bf16"),
+        "k4": count("wgrad_bf16"), "k5": count("maxpool5x5_nhwc"),
+        "device_events": sum(names.values()), "device_busy_ms": busy_ms,
+        "device_span_ms": span_ms, "idle_share": 1 - busy_ms / span_ms if span_ms else None,
+        "top_kernels_ms": dict(busy.most_common(12)),
+    }
+    log(f"train launches {res['launches']}; peak {res['peak_memory_gb']:.2f} GB; "
+        f"profiler {res['profiler']}")
     return res
 
 
@@ -387,34 +765,63 @@ def main() -> int:
     k5 = phase_k5(torch)
     ev = phase_eval(torch)
     st = phase_stream(torch, n_k3)
+    rp = phase_reproj(torch)
+    # The training step runs the road branch only; its K3 sites are the
+    # eval forward's (no layout-decoder site is eligible).
+    train_sites = conv3x3_sites(HW, HW, OCC, branches="road")
+    n_k3_train = sum(s["k3"] for s in train_sites)
+    cb = phase_conv_bwd(torch, train_sites)
+    tr = phase_train(torch)
 
     launches = ev["launches"]
-    if launches != {"conv3x3": n_k3, "maxpool5x5": 16}:
-        raise AssertionError(f"main-path launches {launches}, expected "
-                             f"conv3x3 {n_k3} and maxpool5x5 16")
+    if launches != {k: 0 for k in launches} | {"conv3x3": n_k3, "maxpool5x5": 16}:
+        raise AssertionError(f"eval main-path launches {launches}, expected "
+                             f"conv3x3 {n_k3} and maxpool5x5 16 only")
     prof = ev["profiler"]
     if (prof["k3"], prof["k5"]) != (n_k3, 16):
-        raise AssertionError(f"profiler kernel counts {prof}, expected "
+        raise AssertionError(f"eval profiler kernel counts {prof}, expected "
                              f"K3 {n_k3} and K5 16")
+    want = {"conv3x3": n_k3_train, "conv3x3_dgrad": n_k3_train,
+            "conv3x3_wgrad": n_k3_train, "maxpool5x5": 16, "reproj_fwd": 2, "reproj_bwd": 1}
+    if tr["launches"] != want:
+        raise AssertionError(f"train main-path launches {tr['launches']}, expected {want}")
+    tp = tr["profiler"]
+    if (tp["k1"], tp["k2"], tp["k3"], tp["k4"], tp["k5"]) != (2, 1, 2 * n_k3_train,
+                                                                n_k3_train, 16):
+        raise AssertionError(f"train profiler kernel counts {tp}")
 
-    def entry(kid, name, src, replaces, count, ph):
-        pf = ph["per_forward"]
+    def entry(kid, name, src, replaces, count, err, per, bound_by):
         return {"id": kid, "name": name, "route": "cuda", "source": src,
-                "replaces": replaces, "launches": count,
-                "max_abs_err": ph["max_abs_err"], "ms": pf["ms"],
-                "plain_ms": pf["plain_ms"], "bound_ms": pf["bound_ms"],
-                "bound_by": ph["bound_by"], "library_ms": pf["library_ms"]}
+                "replaces": replaces, "launches": count, "max_abs_err": err,
+                "ms": per["ms"], "plain_ms": per["plain_ms"], "bound_ms": per["bound_ms"],
+                "bound_by": bound_by, "library_ms": per["library_ms"]}
 
+    rps, cbs, tl = rp["per_step"], cb["per_step"], tr["launches"]
+
+    def pick(d, prefix):
+        return {k: d[prefix + k] for k in ("ms", "plain_ms", "library_ms", "bound_ms")}
+
+    # Times are per training step: each kernel summed over its launches in
+    # one 1024^2 bf16 step, at their own shapes.
     table = {"kernels": [
-        entry("K3", "conv3x3_fwd", K3_SRC,
-              "jperceiver_tpu/ops/pallas/conv3x3.py:57", launches["conv3x3"], k3),
-        entry("K5", "maxpool5x5_fwd", K5_SRC,
-              "jperceiver_tpu/ops/pallas/maxpool.py:183", launches["maxpool5x5"], k5),
+        entry("K1", "reproj_fwd", K12_SRC, "jperceiver_tpu/ops/pallas/reproj.py:153",
+              tl["reproj_fwd"], rp["k1_max_abs_err"], pick(rps, "k1_"), rps["bound_by_fwd"]),
+        entry("K2", "reproj_bwd", K12_SRC, "jperceiver_tpu/ops/pallas/reproj.py:164",
+              tl["reproj_bwd"], rp["k2_max_abs_err"], pick(rps, "k2_"), rps["bound_by_bwd"]),
+        entry("K3", "conv3x3_fwd", K3_SRC, "jperceiver_tpu/ops/pallas/conv3x3.py:57",
+              tl["conv3x3"], k3["max_abs_err"], k3["per_forward"], k3["bound_by"]),
+        entry("K3-dgrad", "conv3x3_dgrad", K3_SRC, "jperceiver_tpu/ops/pallas/conv3x3.py:242",
+              tl["conv3x3_dgrad"], cb["dgrad_max_abs_err"], pick(cbs, "dgrad_"), cb["bound_by"]),
+        entry("K4", "conv3x3_wgrad", K4_SRC, "jperceiver_tpu/ops/pallas/conv3x3.py:145",
+              tl["conv3x3_wgrad"], cb["wgrad_max_abs_err"], pick(cbs, "wgrad_"), cb["bound_by"]),
+        entry("K5", "maxpool5x5_fwd", K5_SRC, "jperceiver_tpu/ops/pallas/maxpool.py:183",
+              tl["maxpool5x5"], k5["max_abs_err"], k5["per_forward"], k5["bound_by"]),
     ]}
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
     with open(os.path.join(ROOT, "chiprun_out", "chip_smoke.json"), "w") as f:
         json.dump({"card": card, "build_s": build_s, "k3_sites": n_k3,
-                   "k3": k3, "k5": k5, "eval": ev, "stream": st,
+                   "k3": k3, "k5": k5, "eval": ev, "stream": st, "reproj": rp,
+                   "conv_bwd": cb, "train": tr,
                    "seconds": time.perf_counter() - t_start, "table": table},
                   f, indent=1)
     print(json.dumps(table), flush=True)

@@ -1,4 +1,4 @@
-"""Input data for the port (its own copy of what the inference path needs)."""
+"""Input data for the port (its own copy of the JAX package's synthetic batch)."""
 
 from .synthetic import synthetic_batch
 

@@ -15,9 +15,48 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from ..ops.cuda import conv3x3_fwd, maxpool5x5_fwd, maxpool5x5_plain
+from ..ops.cuda import conv3x3_fwd, maxpool5x5
 from ..ops.cuda.conv3x3 import conv_site_eligible
 from ..ops.padding import reflect_pad
+
+
+class BatchNorm2d(nn.BatchNorm2d):
+    """flax `nn.BatchNorm(momentum=0.9, epsilon=1e-5)` semantics under the
+    `nn.BatchNorm2d` state-dict keys.
+
+    Statistics are at least fp32 whatever the input dtype. In training, the batch
+    mean and the BIASED batch variance (E[x^2] - E[x]^2, clamped at 0)
+    normalize the input and update the running statistics with torch
+    momentum 0.1 (flax 0.9); in eval the running statistics normalize it.
+    Either way y = (x - mean) * (rsqrt(var + eps) * scale) + bias in fp32,
+    returned in the input dtype.
+    """
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        xf = x.to(torch.promote_types(x.dtype, torch.float32))
+        if self.training:
+            mean = xf.mean((0, 2, 3))
+            var = torch.maximum((xf * xf).mean((0, 2, 3)) - mean * mean,
+                                mean.new_zeros(()))
+            with torch.no_grad():
+                m = self.momentum
+                self.running_mean.mul_(1.0 - m).add_(mean, alpha=m)
+                self.running_var.mul_(1.0 - m).add_(var, alpha=m)
+                self.num_batches_tracked.add_(1)
+        else:
+            mean, var = self.running_mean, self.running_var
+        mul = torch.rsqrt(var + self.eps) * self.weight
+        y = (xf - mean[:, None, None]) * mul[:, None, None] + self.bias[:, None, None]
+        return y.to(x.dtype)
+
+
+def dropout(x: torch.Tensor, rate: float,
+            generator: torch.Generator | None) -> torch.Tensor:
+    """flax `nn.Dropout`: keep each element with probability 1 - rate and
+    scale it by 1 / (1 - rate); the draw comes from `generator`."""
+    keep = 1.0 - rate
+    mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
+    return torch.where(mask, x / keep, 0)
 
 
 class CastConv2d(nn.Conv2d):
@@ -50,7 +89,7 @@ class CastLinear(nn.Linear):
 class Conv3x3(CastConv2d):
     """3x3 conv, `mode` "same" (zero pad 1) or "valid" (input pre-padded by
     the caller), that sends eligible stride-1 sites on a CUDA tensor to
-    kernel K3.
+    kernel K3 (and their backward to K3 as the data-grad and K4).
 
     A site is eligible when one of the two gates passes on its output
     extent (`ops/cuda/conv3x3.py::conv_site_eligible`); `set_kernels`
@@ -115,7 +154,8 @@ class Conv1x1(nn.Module):
 
 
 class CRPBlock(nn.Module):
-    """Chained residual pooling: n stages of 5x5/s1 max-pool (kernel K5) ->
+    """Chained residual pooling: n stages of 5x5/s1 max-pool (kernel K5,
+    else its plain version; the equality-mask backward either way) ->
     1x1 conv, summed into the trunk."""
 
     def __init__(self, features: int, n_stages: int = 4,
@@ -128,10 +168,9 @@ class CRPBlock(nn.Module):
                             Conv1x1(features, features, dtype=dtype))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        pool = maxpool5x5_fwd if self.use_kernel else maxpool5x5_plain
         top = x
         for i in range(1, self.n_stages + 1):
-            top = pool(top)
+            top = maxpool5x5(top, self.use_kernel)
             top = getattr(self, f"{i}_pointwise")(top)
             x = top + x
         return x

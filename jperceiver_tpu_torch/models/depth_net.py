@@ -1,6 +1,5 @@
 """Depth encoder and CRP decoder (counterpart of
-`jperceiver_tpu/models/depth_net.py`). Dropout is a no-op in eval mode and
-is left out: this slice is the inference path."""
+`jperceiver_tpu/models/depth_net.py`)."""
 
 from __future__ import annotations
 
@@ -9,7 +8,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..ops.sampling import upsample2x_nearest
-from .common import Conv1x1, ConvReflect3x3, CRPBlock
+from .common import Conv1x1, ConvReflect3x3, CRPBlock, dropout
 from .resnet import ResNet, num_ch_enc
 
 
@@ -27,7 +26,9 @@ class DepthDecoder(nn.Module):
 
     The iconv is one reflect-pad 3x3 conv over the channel concat
     [reduced skip, upsampled previous level, previous disp]; the JAX
-    `ConvReflect3x3Split` computes the same conv part by part.
+    `ConvReflect3x3Split` computes the same conv part by part. In training,
+    dropout at `dropout_rate` (0.5, as in JAX) is applied to l4 and l3,
+    drawn from the `generator` passed to `forward`.
     """
 
     def __init__(self, depth: int = 18, bottleneck: int = 256,
@@ -35,6 +36,7 @@ class DepthDecoder(nn.Module):
         super().__init__()
         enc = num_ch_enc(depth)
         bn = bottleneck
+        self.dropout_rate = 0.5
         for i in (4, 3, 2, 1):
             c_red = 512 if i == 4 else bn
             self.add_module(f"reduce{i}", Conv1x1(enc[i], c_red, dtype=dtype))
@@ -45,7 +47,12 @@ class DepthDecoder(nn.Module):
             self.add_module(f"disp{i}", nn.Sequential(
                 ConvReflect3x3(bn, 1, dtype), nn.Sigmoid()))
 
-    def forward(self, feats: list[torch.Tensor]) -> dict[str, torch.Tensor]:
+    def forward(self, feats: list[torch.Tensor],
+                generator: torch.Generator | None = None) -> dict[str, torch.Tensor]:
+        if self.training and self.dropout_rate:
+            feats = list(feats)
+            for i in (4, 3):
+                feats[i] = dropout(feats[i], self.dropout_rate, generator)
         out = {}
         x = disp = None
         for i in (4, 3, 2, 1):

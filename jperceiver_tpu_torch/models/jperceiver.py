@@ -1,5 +1,5 @@
-"""JPerceiver: joint depth + pose + dual BEV layout, eval forward
-(counterpart of `jperceiver_tpu/models/jperceiver.py`).
+"""JPerceiver: joint depth + pose + dual BEV layout (counterpart of
+`jperceiver_tpu/models/jperceiver.py`).
 
 Batch schema (NCHW; frames stacked on dim 1 in `frame_ids` order):
   color_aug : (B, F, 3, H, W) float32 in [0, 1]
@@ -35,10 +35,11 @@ POSE_INPUT_HW = (192, 640)  # pose inputs are resized to this
 
 
 class JPerceiver(nn.Module):
-    """The eval forward. The input size is free (a multiple of 128 with
-    `occ_map_size` = height / 4, as in the JAX package); `occ_map_size`
-    sizes the CVP, `branches` picks the BEV branches ("both", "road",
-    "vehicle"), `dtype` is the compute dtype (parameters stay fp32)."""
+    """The forward of eval and training. The input size is free (a
+    multiple of 128 with `occ_map_size` = height / 4, as in the JAX
+    package); `occ_map_size` sizes the CVP, `branches` picks the BEV
+    branches ("both", "road", "vehicle"), `dtype` is the compute dtype
+    (parameters stay fp32)."""
 
     def __init__(self, depth_layers: int = 18, pose_layers: int = 18,
                  frame_ids: Sequence[int] = (0, -1, 1),
@@ -117,11 +118,22 @@ class JPerceiver(nn.Module):
         axisangle, translation = self._pose(pair)
         return transformation_from_parameters(axisangle, translation)
 
-    def forward(self, batch: dict, with_pose: bool = False) -> dict[str, torch.Tensor]:
+    def forward(self, batch: dict, train: bool | None = None,
+                with_pose: bool | None = None,
+                generator: torch.Generator | None = None) -> dict[str, torch.Tensor]:
+        """`train` True or False puts the whole model in that mode first
+        (BatchNorm on batch statistics that update the running ones, and
+        the depth decoder's dropout, drawn from `generator`); None keeps
+        the current mode. `with_pose` None means pose in training only,
+        as the JAX `with_pose=None` does."""
+        if train is not None:
+            self.train(train)
+        if with_pose is None:
+            with_pose = self.training
         color_aug0 = batch["color_aug"][:, 0].contiguous(
             memory_format=torch.channels_last)
         depth_feats = self.DepthEncoder(color_aug0)
-        outputs = dict(self.DepthDecoder(depth_feats))
+        outputs = dict(self.DepthDecoder(depth_feats, generator))
         enc_feat = self.LayoutEncoder(color_aug0)
         if self.branches in ("both", "road"):
             outputs.update(self._layout_branch(enc_feat, depth_feats[-1], ""))

@@ -9,7 +9,8 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..ops.sampling import upsample2x_nearest
-from .common import CastConv2d, CastLinear, Conv3x3, ConvReflect3x3
+from .common import (BatchNorm2d, CastConv2d, CastLinear, Conv3x3,
+                     ConvReflect3x3)
 from .resnet import ResNet, num_ch_enc
 
 
@@ -132,9 +133,9 @@ class LayoutDecoder(nn.Module):
         layers = []
         c = in_channels
         for ch in (256, 128, 64, 32, 16):
-            layers += [Conv3x3(c, ch, dtype=dtype), nn.BatchNorm2d(ch),
+            layers += [Conv3x3(c, ch, dtype=dtype), BatchNorm2d(ch),
                        nn.ReLU(), Conv3x3(ch, ch, dtype=dtype),
-                       nn.BatchNorm2d(ch)]
+                       BatchNorm2d(ch)]
             c = ch
         layers.append(ConvReflect3x3(c, num_class, dtype))
         self.decoder = nn.ModuleList(layers)

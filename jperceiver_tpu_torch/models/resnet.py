@@ -3,9 +3,9 @@
 
 Keys follow the torchvision-style ResNet of the reference. The stem is a
 plain 7x7/s2 conv on the same weight (the JAX `StemConv` is a TPU rewrite
-of it). BatchNorm is `nn.BatchNorm2d` (eps 1e-5): in eval mode it runs on
-the running stats, in fp32 on a bf16 input, with the output in the input
-dtype, as flax's BatchNorm does.
+of it). BatchNorm is `common.BatchNorm2d`, flax's BatchNorm under the
+`nn.BatchNorm2d` keys. The stem max-pool has the equality-mask backward of
+the JAX `max_pool_3x3_s2`.
 """
 
 from __future__ import annotations
@@ -14,7 +14,8 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from .common import CastConv2d, Conv3x3
+from ..ops.cuda import maxpool3x3s2
+from .common import BatchNorm2d, CastConv2d, Conv3x3
 
 _STAGES = {18: (2, 2, 2, 2), 34: (3, 4, 6, 3), 50: (3, 4, 6, 3),
            101: (3, 4, 23, 3)}
@@ -30,7 +31,7 @@ def num_ch_enc(depth: int) -> tuple[int, ...]:
 def _downsample(c_in, c_out, stride, dtype):
     return nn.Sequential(
         CastConv2d(c_in, c_out, 1, stride=stride, bias=False, dtype=dtype),
-        nn.BatchNorm2d(c_out))
+        BatchNorm2d(c_out))
 
 
 class BasicBlock(nn.Module):
@@ -39,9 +40,9 @@ class BasicBlock(nn.Module):
     def __init__(self, c_in: int, width: int, stride: int, dtype):
         super().__init__()
         self.conv1 = Conv3x3(c_in, width, stride, bias=False, dtype=dtype)
-        self.bn1 = nn.BatchNorm2d(width)
+        self.bn1 = BatchNorm2d(width)
         self.conv2 = Conv3x3(width, width, bias=False, dtype=dtype)
-        self.bn2 = nn.BatchNorm2d(width)
+        self.bn2 = BatchNorm2d(width)
         self.downsample = (_downsample(c_in, width, stride, dtype)
                            if stride != 1 or c_in != width else None)
 
@@ -59,11 +60,11 @@ class Bottleneck(nn.Module):
         super().__init__()
         out = width * 4
         self.conv1 = CastConv2d(c_in, width, 1, bias=False, dtype=dtype)
-        self.bn1 = nn.BatchNorm2d(width)
+        self.bn1 = BatchNorm2d(width)
         self.conv2 = Conv3x3(width, width, stride, bias=False, dtype=dtype)
-        self.bn2 = nn.BatchNorm2d(width)
+        self.bn2 = BatchNorm2d(width)
         self.conv3 = CastConv2d(width, out, 1, bias=False, dtype=dtype)
-        self.bn3 = nn.BatchNorm2d(out)
+        self.bn3 = BatchNorm2d(out)
         self.downsample = (_downsample(c_in, out, stride, dtype)
                            if stride != 1 or c_in != out else None)
 
@@ -85,7 +86,7 @@ class ResNet(nn.Module):
         block = BasicBlock if depth <= 34 else Bottleneck
         self.conv1 = CastConv2d(in_channels, 64, 7, stride=2, padding=3,
                                 bias=False, dtype=dtype)
-        self.bn1 = nn.BatchNorm2d(64)
+        self.bn1 = BatchNorm2d(64)
         c = 64
         for i, (width, n) in enumerate(zip((64, 128, 256, 512), _STAGES[depth])):
             blocks = []
@@ -98,7 +99,7 @@ class ResNet(nn.Module):
     def forward(self, x: torch.Tensor) -> list[torch.Tensor]:
         y = F.relu(self.bn1(self.conv1(x)))
         feats = [y]
-        y = F.max_pool2d(y, 3, 2, 1)
+        y = maxpool3x3s2(y)
         for layer in (self.layer1, self.layer2, self.layer3, self.layer4):
             y = layer(y)
             feats.append(y)

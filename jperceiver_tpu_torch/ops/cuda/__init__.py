@@ -2,14 +2,18 @@
 
 Each wrapper launches its kernel for a CUDA tensor and takes the kernel's
 plain PyTorch version, defined beside it, only for a CPU tensor. Kernels
-are built at first use (`_build.py`).
+are built at first use (`_build.py`). The differentiable entry points are
+`torch.autograd.Function`s whose backwards are kernels where the TPU
+kernel had one: K3 forward and data-grad with K4 as the weight-grad
+(`conv3x3_fwd`), K1 with K2 (`reproj_min`), and K5 (`maxpool5x5`).
 """
 
-from . import conv3x3, maxpool
-from .conv3x3 import conv3x3_fwd, conv3x3_plain
-from .maxpool import maxpool5x5_fwd, maxpool5x5_plain
+from . import conv3x3, maxpool, reproj
+from .conv3x3 import conv3x3_fwd, conv3x3_plain, conv3x3_wgrad, conv3x3_wgrad_plain
+from .maxpool import maxpool3x3s2, maxpool5x5, maxpool5x5_fwd, maxpool5x5_plain
+from .reproj import reproj_min, reproj_min_plain
 
-_COUNTS = (conv3x3.LAUNCHES, maxpool.LAUNCHES)
+_COUNTS = (conv3x3.LAUNCHES, maxpool.LAUNCHES, reproj.LAUNCHES)
 
 
 def launch_counts() -> dict[str, int]:
@@ -23,5 +27,7 @@ def reset_launch_counts() -> None:
             counts[k] = 0
 
 
-__all__ = ["conv3x3_fwd", "conv3x3_plain", "maxpool5x5_fwd",
-           "maxpool5x5_plain", "launch_counts", "reset_launch_counts"]
+__all__ = ["conv3x3_fwd", "conv3x3_plain", "conv3x3_wgrad",
+           "conv3x3_wgrad_plain", "maxpool3x3s2", "maxpool5x5",
+           "maxpool5x5_fwd", "maxpool5x5_plain", "reproj_min",
+           "reproj_min_plain", "launch_counts", "reset_launch_counts"]

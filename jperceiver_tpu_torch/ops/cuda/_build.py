@@ -16,7 +16,7 @@ from pathlib import Path
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "_build"
-SOURCES = ("conv3x3.cu", "maxpool5x5.cu")
+SOURCES = ("conv3x3.cu", "conv3x3_wgrad.cu", "maxpool5x5.cu", "reproj.cu")
 NVCC_FLAGS = (
     "-O3",
     "-std=c++17",
@@ -34,7 +34,10 @@ _I = ctypes.c_int
 # name -> argument types; every function returns a cudaError_t as int.
 _SIGNATURES = {
     "jp_conv3x3_fwd": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
+    "jp_conv3x3_wgrad": (_P, _P, _P, _P) + (_I,) * 9 + (_P,),
     "jp_maxpool5x5_fwd": (_P, _P, _I, _I, _I, _I, _I, _P),
+    "jp_reproj_fwd": (_P, _P, _P) + (_I,) * 7 + (_P,),
+    "jp_reproj_bwd": (_P, _P, _P, _P) + (_I,) * 7 + (_P,),
 }
 
 

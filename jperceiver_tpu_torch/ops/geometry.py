@@ -1,10 +1,10 @@
-"""Rigid-body geometry of the inference path (counterpart of
-`jperceiver_tpu/ops/geometry.py:43-108`).
+"""Camera and rigid-body geometry (counterpart of
+`jperceiver_tpu/ops/geometry.py`).
 
 The JAX package pins these small matmuls to `precision=HIGHEST`. Here the
-4x4 products are written as fp32 sums of products, so no TF32 or
+products are written as fp32 sums of products, so no TF32 or
 reduced-precision matmul can reach them whatever the global flags say;
-results come back in the input dtype.
+results come back in the input dtype. Depth maps are (B, 1, H, W).
 """
 
 from __future__ import annotations
@@ -16,6 +16,25 @@ def _matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Batched a @ b summed in fp32, returned in a's dtype."""
     prod = a.float()[..., :, :, None] * b.float()[..., None, :, :]
     return prod.sum(-2).to(a.dtype)
+
+
+def bmv(a: torch.Tensor, pts: torch.Tensor) -> torch.Tensor:
+    """Batched (B, I, J) @ (B or 1, J, N), summed over j in order in fp32,
+    returned in fp32."""
+    a, pts = a.float(), pts.float()
+    out = a[:, :, 0, None] * pts[:, None, 0]
+    for j in range(1, a.shape[2]):
+        out = out + a[:, :, j, None] * pts[:, None, j]
+    return out
+
+
+def disp_to_depth(disp: torch.Tensor, min_depth: float, max_depth: float):
+    """Sigmoid disparity -> (scaled_disp, depth):
+    depth = 1 / (1/max + (1/min - 1/max) * disp)."""
+    min_disp = 1.0 / max_depth
+    max_disp = 1.0 / min_depth
+    scaled_disp = min_disp + (max_disp - min_disp) * disp
+    return scaled_disp, 1.0 / scaled_disp
 
 
 def rot_from_axisangle(vec: torch.Tensor) -> torch.Tensor:
@@ -84,3 +103,42 @@ def se3_compose(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """a @ b for batched (B, 4, 4) rigid transforms, summed in fp32, in
     a's dtype."""
     return _matmul(a, b)
+
+
+def ground_homography(camera_T_ground: torch.Tensor, K: torch.Tensor) -> torch.Tensor:
+    """Homography image <- ground plane, K @ [r1 | r2 | t]: (B, 4, 4) and
+    (B, 3, 3) -> (B, 3, 3)."""
+    cols = torch.stack([camera_T_ground[:, :3, 0], camera_T_ground[:, :3, 1],
+                        camera_T_ground[:, :3, 3]], -1)
+    return _matmul(K, cols)
+
+
+def _pixel_grid(height: int, width: int, device) -> torch.Tensor:
+    """Homogeneous pixel grid (1, 3, H*W) fp32 with (x, y, 1) rows."""
+    ys, xs = torch.meshgrid(torch.arange(height, dtype=torch.float32, device=device),
+                            torch.arange(width, dtype=torch.float32, device=device),
+                            indexing="ij")
+    return torch.stack([xs, ys, torch.ones_like(xs)]).reshape(1, 3, height * width)
+
+
+def backproject(depth: torch.Tensor, inv_K: torch.Tensor) -> torch.Tensor:
+    """Depth (B, 1, H, W) and inverse intrinsics (B, 4, 4) -> homogeneous
+    camera points (B, 4, H*W) fp32."""
+    b, _, h, w = depth.shape
+    rays = bmv(inv_K[:, :3, :3], _pixel_grid(h, w, depth.device))
+    pts = depth.float().reshape(b, 1, h * w) * rays
+    return torch.cat([pts, torch.ones_like(pts[:, :1])], 1)
+
+
+def project(points: torch.Tensor, K: torch.Tensor, T: torch.Tensor,
+            height: int, width: int, eps: float = 1e-7) -> torch.Tensor:
+    """Camera points (B, 4, H*W) through pose T (B, 4, 4) and intrinsics K
+    (B, 4, 4) -> sampling grid (B, H, W, 2) in [-1, 1], (x, y),
+    align-corners convention, fp32."""
+    b = points.shape[0]
+    P = _matmul(K.float(), T.float())[:, :3, :]
+    cam = bmv(P, points)
+    xy = cam[:, :2] / (cam[:, 2:3] + eps)
+    xy = xy.reshape(b, 2, height, width).permute(0, 2, 3, 1)
+    scale = xy.new_tensor([width - 1, height - 1])
+    return (xy / scale - 0.5) * 2.0

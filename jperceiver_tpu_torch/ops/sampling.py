@@ -1,5 +1,10 @@
-"""Resizes of the inference path (counterpart of the matching functions of
-`jperceiver_tpu/ops/sampling.py`). Images are NCHW."""
+"""Resizes and bilinear sampling (counterpart of the matching functions of
+`jperceiver_tpu/ops/sampling.py`). Images are NCHW; sampling grids are
+(B, Ho, Wo, 2) with (x, y) in [-1, 1], as `F.grid_sample` takes them.
+
+`grid_sample` samples fp32 taps: the JAX package's bf16 and uint8 taps and
+its packed-patch gather are TPU lowerings of the same function.
+"""
 
 from __future__ import annotations
 
@@ -21,3 +26,61 @@ def resize_bilinear(img: torch.Tensor, out_h: int, out_w: int) -> torch.Tensor:
 def upsample2x_nearest(img: torch.Tensor) -> torch.Tensor:
     """x2 nearest-neighbour upsample."""
     return F.interpolate(img, scale_factor=2, mode="nearest")
+
+
+def grid_sample(img: torch.Tensor, grid: torch.Tensor,
+                padding_mode: str = "border") -> torch.Tensor:
+    """Bilinear sampling of img (B, C, H, W) at grid (B, Ho, Wo, 2), with
+    the align-corners convention of the reference's `Project`; padding
+    "border" or "zeros". Taps and result in the image's dtype, at least
+    fp32: (B, C, Ho, Wo)."""
+    if padding_mode not in ("border", "zeros"):
+        raise ValueError(f"unsupported padding_mode: {padding_mode}")
+    dt = torch.promote_types(img.dtype, torch.float32)
+    return F.grid_sample(img.to(dt), grid.to(dt), mode="bilinear",
+                         padding_mode=padding_mode, align_corners=True)
+
+
+def grid_sample_multi(img: torch.Tensor, grids: torch.Tensor,
+                      padding_mode: str = "border") -> torch.Tensor:
+    """One image (B, C, H, W) sampled at S grids (B, S, Ho, Wo, 2) ->
+    (B, S, C, Ho, Wo), as one `grid_sample` over the stacked grids."""
+    b, s, ho, wo, _ = grids.shape
+    out = grid_sample(img, grids.reshape(b, s * ho, wo, 2), padding_mode)
+    return out.reshape(b, img.shape[1], s, ho, wo).transpose(1, 2)
+
+
+def warp_perspective(src: torch.Tensor, M: torch.Tensor, dsize: tuple[int, int],
+                     padding_mode: str = "zeros") -> torch.Tensor:
+    """Perspective warp dst(p) = src(M^-1 p) in pixel coordinates, the
+    `torchgeometry.warp_perspective` semantics of the CGT label: src
+    (B, C, H, W), M (B, 3, 3), dsize (out_h, out_w) -> (B, C, out_h, out_w)."""
+    from .geometry import bmv
+
+    out_h, out_w = dsize
+    b, _, h, w = src.shape
+    m_inv = torch.linalg.inv(M.float())
+    ys, xs = torch.meshgrid(torch.arange(out_h, dtype=torch.float32, device=src.device),
+                            torch.arange(out_w, dtype=torch.float32, device=src.device),
+                            indexing="ij")
+    pix = torch.stack([xs, ys, torch.ones_like(xs)]).reshape(1, 3, out_h * out_w)
+    q = bmv(m_inv, pix)
+    q = q[:, :2] / (q[:, 2:3] + 1e-8)
+    gx = q[:, 0] * (2.0 / max(w - 1, 1)) - 1.0
+    gy = q[:, 1] * (2.0 / max(h - 1, 1)) - 1.0
+    grid = torch.stack([gx, gy], -1).reshape(b, out_h, out_w, 2)
+    return grid_sample(src, grid, padding_mode)
+
+
+def resize_area(img: torch.Tensor, out_h: int, out_w: int) -> torch.Tensor:
+    """Area (average-pool) downsample by integer factors, as
+    `F.interpolate(mode="area")` does at the ratios the smoothness loss
+    uses."""
+    h, w = img.shape[2], img.shape[3]
+    if (h, w) == (out_h, out_w):
+        return img
+    fh, fw = h // out_h, w // out_w
+    if fh * out_h != h or fw * out_w != w:
+        raise ValueError(f"resize_area needs integer factors, got {h}x{w} -> "
+                         f"{out_h}x{out_w}")
+    return F.avg_pool2d(img, (fh, fw))

@@ -82,3 +82,98 @@ def test_eval_step_kernels_on_off(cuda):
     for k in on:
         scale = max(1.0, off[k].abs().max().item())
         assert (on[k] - off[k]).abs().max().item() <= 1e-3 * scale, k
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("c,o,pad", [(64, 64, 1), (513, 256, 0), (40, 72, 1), (128, 8, 0)])
+def test_conv3x3_backward_kernels(cuda, dtype, c, o, pad):
+    """K3 as the data-grad (at pad 2 - pad; 513 output channels for the
+    iconv) and K4 against their plain versions, through the autograd
+    Function."""
+    from jperceiver_tpu_torch.ops.cuda import conv3x3_plain, conv3x3_wgrad_plain
+
+    g = torch.Generator(device=cuda).manual_seed(c + o)
+    x = torch.randn(2, c, 21, 34, device=cuda, generator=g).to(dtype)
+    x = x.contiguous(memory_format=torch.channels_last).requires_grad_()
+    w = (torch.randn(o, c, 3, 3, device=cuda, generator=g) / math.sqrt(9 * c)).to(dtype)
+    w.requires_grad_()
+    b = torch.randn(o, device=cuda, generator=g).to(dtype).requires_grad_()
+    y = conv3x3_fwd(x, w, b, pad)
+    gy = torch.randn(y.shape, device=cuda, generator=g).to(dtype)
+    reset_launch_counts()
+    y.backward(gy)
+    counts = launch_counts()
+    assert counts["conv3x3_dgrad"] == 1 and counts["conv3x3_wgrad"] == 1
+    dx_ref = conv3x3_plain(gy, w.detach().flip(2, 3).transpose(0, 1), None, 2 - pad)
+    dw_ref = conv3x3_wgrad_plain(x.detach(), gy, pad)
+    torch.cuda.synchronize()
+    assert x.grad.dtype == w.grad.dtype == b.grad.dtype == dtype
+    scale = max(1.0, dx_ref.float().abs().max().item())
+    tol = (1e-4 if dtype == torch.float32 else 1e-2) * scale
+    assert (x.grad.float() - dx_ref.float()).abs().max().item() <= tol
+    # K4 sums in fp32 in another order; the bf16 result is one rounding of it.
+    wtol = (1e-4 if dtype == torch.float32 else 1e-2) * dw_ref.abs().max().item()
+    assert (w.grad.float() - dw_ref).abs().max().item() <= wtol
+    torch.testing.assert_close(b.grad.float(), gy.float().sum((0, 2, 3)), rtol=1e-2, atol=1e-2)
+
+
+@pytest.mark.parametrize("dtype,b", [(torch.float32, 1), (torch.bfloat16, 1),
+                                     (torch.bfloat16, 2), (torch.float32, 3)])
+@pytest.mark.parametrize("h,w", [(37, 45), (2, 3)])
+def test_reproj_kernels(cuda, dtype, b, h, w):
+    """K1 and K2 against their plain versions, with exact frame ties (frame 1
+    copies frame 0 on the left half) and sizes that cut tiles and reach the
+    reflect ring and corners of every tile. Pixel values are 8-bit levels
+    k/256, so the SSIM window sums are exact in both versions (on arbitrary
+    fp32 values, low-variance windows make the gradient depend on their
+    order)."""
+    from jperceiver_tpu_torch.ops.cuda import reproj_min, reproj_min_plain
+    from jperceiver_tpu_torch.ops.cuda.reproj import _reproj_bwd_plain
+
+    g = torch.Generator(device=cuda).manual_seed(b + h)
+    preds = torch.round(256 * torch.rand(2, b, 2, 3, h, w, device=cuda, generator=g)) / 256
+    preds[:, :, 1, ..., : w // 2] = preds[:, :, 0, ..., : w // 2]
+    preds = preds.to(dtype).requires_grad_()
+    targ = (torch.round(256 * torch.rand(b, 3, h, w, device=cuda, generator=g)) / 256).to(dtype)
+    cot = torch.randn(2, b, h, w, device=cuda, generator=g)
+    reset_launch_counts()
+    out = reproj_min(preds, targ)
+    out.backward(cot)
+    assert launch_counts()["reproj_fwd"] == 1 and launch_counts()["reproj_bwd"] == 1
+    ref = reproj_min_plain(preds.detach(), targ)
+    dref = _reproj_bwd_plain(preds.detach(), targ, cot)
+    torch.cuda.synchronize()
+    assert out.dtype == torch.float32 and preds.grad.dtype == dtype
+    assert (out - ref).abs().max().item() <= 2e-5
+    tol = (1e-4 if dtype == torch.float32 else 1e-2) * dref.float().abs().max().item()
+    assert (preds.grad.float() - dref.float()).abs().max().item() <= tol
+
+
+def test_kernel_routed_blocks_reach_every_parameter(cuda):
+    """A backward through a K3-routed `Conv3x3` and a K5-routed `CRPBlock`
+    reaches every parameter and the input, as the routing through cuDNN and
+    the plain pool does. Compared in the L2 norm of each gradient, to 1e-2:
+    where two values of a pool window lie within the rounding of K3 against
+    cuDNN, the max changes place between the routings, which moves a few
+    elements of the cotangent whole (measured on the H100: 1e-3 of the norm
+    of the conv weight's gradient)."""
+    from jperceiver_tpu_torch.models.common import Conv3x3, CRPBlock, set_kernels
+
+    torch.manual_seed(0)
+    net = torch.nn.Sequential(Conv3x3(64, 64), CRPBlock(64)).to(cuda)
+    x = torch.randn(1, 64, 128, 128, device=cuda).contiguous(
+        memory_format=torch.channels_last).requires_grad_()
+    grads = {}
+    for on in (True, False):
+        set_kernels(net, on, on, on)
+        net.zero_grad()
+        x.grad = None
+        reset_launch_counts()
+        net(x).square().mean().backward()
+        counts = launch_counts()
+        assert (counts["conv3x3"], counts["conv3x3_dgrad"], counts["conv3x3_wgrad"],
+                counts["maxpool5x5"]) == ((1, 1, 1, 4) if on else (0, 0, 0, 0))
+        grads[on] = [p.grad.clone() for p in net.parameters()] + [x.grad.clone()]
+    for i, (a, ref) in enumerate(zip(grads[True], grads[False])):
+        assert torch.isfinite(a).all() and ref.norm() > 0
+        assert (a - ref).norm().item() <= 1e-2 * ref.norm().item(), i
