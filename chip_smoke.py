@@ -18,13 +18,17 @@ Phases, each of which raises on failure:
   6. K1/K2 (reprojection loss forward/backward) against their plain
      versions at the training step's shapes, bf16 and fp32, and B=2 bf16,
      with exact frame ties, timed beside the plain versions and the ATen
-     path (reprojection_loss + amin, forward and autograd backward);
+     path (reprojection_loss + amin, forward and autograd backward); in
+     fp32 also on arbitrary pixels and on grid_sample outputs, with K2 and
+     its plain version both held to the float64 autograd gradient;
   7. K3 as the data-grad (pad 2 and 1) and K4 (weight-grad) against their
      plain versions at every K3 site shape of the step, bf16 and fp32,
      timed beside cuDNN's conv2d_input / conv2d_weight;
   8. the flagship training step at 1024^2 (bench.py's configuration: road
      branch, B=1, Adam, clip 35), random weights from a seed: fp32 with the
-     kernels on against off (losses and gradients), bf16 for 20 steps on
+     kernels on against off, both against the step in float64 (losses and
+     gradients; the library route's own spread under a rounding-level
+     change of the input sets each gradient's bound), bf16 for 20 steps on
      one batch (finite, falling loss, BatchNorm statistics moving),
      frames/s with the kernels on and off in turns, the kernel launches of
      one step from the counters and a profiler trace, its device busy time,
@@ -64,6 +68,7 @@ TRAIN_CFG = dict(
     cgt_label_hw=(375, 1242), optimizer=dict(type="Adam", lr=1e-4, weight_decay=0),
     optimizer_config=dict(grad_clip=dict(max_norm=35, norm_type=2)),
     lr_config=dict(policy="step", warmup=None, step=[50]))
+STEPS_PER_EPOCH = 1000  # the LR milestones' epoch, as bench.py:173 sets it
 # Operations a pixel, channel and frame of the fused reprojection loss (3x3
 # separable sums of x, x^2, xy; the SSIM and Charbonnier terms), forward
 # and backward (the backward recomputes the forward and gathers 3 fields).
@@ -387,20 +392,62 @@ def phase_stream(torch, n_k3: int) -> dict:
 
 def _levels(torch, g, shape):
     """Uniform image levels k/256 in [0, 1]: 8-bit pixels, exact in bf16 and
-    fp32, so the SSIM window sums are exact in both versions. On arbitrary
-    fp32 values, a window of near-zero variance makes the SSIM gradient
-    depend on the order of those sums (measured on the H100 at 1024^2: 2.8%
-    of max |grad| between K2 and its plain version at such windows)."""
+    fp32, so the SSIM window sums are exact in both versions."""
     return torch.round(256 * torch.rand(shape, device="cuda", generator=g)) / 256
 
 
-def _tie_preds(torch, g, shape, dtype):
+def _tie_preds(torch, g, shape, dtype, levels=True):
     """Random preds whose frame 1 copies frame 0 over the left half of the
     image: exact frame ties there."""
-    p = _levels(torch, g, shape)
+    p = _levels(torch, g, shape) if levels else torch.rand(shape, device="cuda", generator=g)
     if shape[2] > 1:
         p[:, :, 1, ..., : shape[-1] // 2] = p[:, :, 0, ..., : shape[-1] // 2]
     return p.to(dtype)
+
+
+def _warped_preds(torch, g, shape):
+    """fp32 grid_sample outputs (border padding) of random frames at random
+    affine warps that push part of each frame out of view: the kind of
+    operand the training step gives K1/K2, with clamped flat regions."""
+    s_, b_, f_, c_, h, w = shape
+    frames = torch.rand((b_ * f_, c_, h, w), device="cuda", generator=g)
+    theta = torch.eye(2, 3, device="cuda").repeat(s_ * b_ * f_, 1, 1)
+    theta[:, :, :2] += 0.15 * torch.randn((s_ * b_ * f_, 2, 2), device="cuda", generator=g)
+    theta[:, :, 2] = 0.2 * torch.randn((s_ * b_ * f_, 2), device="cuda", generator=g)
+    grid = torch.nn.functional.affine_grid(theta, (s_ * b_ * f_, c_, h, w), align_corners=True)
+    src = frames.repeat(s_, 1, 1, 1)
+    out = torch.nn.functional.grid_sample(src, grid, padding_mode="border", align_corners=True)
+    return out.reshape(s_, b_, f_, c_, h, w).contiguous()
+
+
+def _k2_f64_witness(torch, preds, targ, cot, d, dref) -> dict:
+    """Distances of K2 (d) and its plain version (dref) to the float64
+    autograd gradient at the same fp32 operands, outside +-2 pixels of
+    frame-mins decided by less than 1e-5 (there fp32 may route a pixel to the
+    other frame); exact ties stay in."""
+    from jperceiver_tpu_torch.ops.photometric import reprojection_loss
+
+    F = torch.nn.functional
+    s_, b_, _, _, h, w = preds.shape
+    p = preds.double().requires_grad_()
+    with torch.enable_grad():
+        rl = reprojection_loss(p, targ.double()[:, None])[:, :, :, 0]
+        best = rl[:, :, 0]
+        for f in range(1, rl.shape[2]):
+            best = torch.minimum(best, rl[:, :, f])
+        (g64,) = torch.autograd.grad(best, p, cot.double())
+    rl = rl.detach()
+    gap = (rl[:, :, 0] - rl[:, :, 1]).abs()
+    amb = ((gap > 0) & (gap < 1e-5)).float().reshape(s_ * b_, 1, h, w)
+    keep = (F.max_pool2d(amb, 5, 1, 2) == 0).reshape(s_, b_, 1, 1, h, w)
+    ek = (d.double() - g64) * keep
+    ep = (dref.double() - g64) * keep
+    out = {"k2_err_f64": ek.abs().max().item(), "plain_err_f64": ep.abs().max().item(),
+           "k2_rms_f64": ek.pow(2).mean().sqrt().item(),
+           "plain_rms_f64": ep.pow(2).mean().sqrt().item(),
+           "grad_f64_max": g64.abs().max().item(), "f64_pixels_masked": int((~keep).sum().item())}
+    del p, rl, best, g64, ek, ep
+    return out
 
 
 def phase_reproj(torch) -> dict:
@@ -411,23 +458,36 @@ def phase_reproj(torch) -> dict:
     F = torch.nn.functional
     g = torch.Generator(device="cuda").manual_seed(3)
     bf16, f32 = torch.bfloat16, torch.float32
-    # (shape, dtype, role in one training step): the warped stack and the
-    # automask identity pairs at B=1 in bf16 (the flagship's operands), the
-    # warped stack in fp32, and B=2 in bf16.
-    cases = [((4, 1, 2, 3, HW, HW), bf16, "warped"), ((2, 1, 1, 3, HW, HW), bf16, "identity"),
-             ((4, 1, 2, 3, HW, HW), f32, None), ((4, 2, 2, 3, HW, HW), bf16, None)]
+    # (shape, dtype, operands, role in one training step): the warped stack
+    # and the automask identity pairs at B=1 in bf16 (the flagship's
+    # operands), B=2 in bf16, and in fp32 the warped stack on 8-bit levels,
+    # on arbitrary fp32 pixels and on grid_sample outputs. On 8-bit levels
+    # the window sums are exact in both versions; on the other fp32
+    # operands both versions round them, and each is held to the float64
+    # gradient as well as to the other.
+    cases = [((4, 1, 2, 3, HW, HW), bf16, "levels", "warped"),
+             ((2, 1, 1, 3, HW, HW), bf16, "levels", "identity"),
+             ((4, 2, 2, 3, HW, HW), bf16, "levels", None),
+             ((4, 1, 2, 3, HW, HW), f32, "levels", None),
+             ((4, 1, 2, 3, HW, HW), f32, "arbitrary", None),
+             ((4, 1, 2, 3, HW, HW), f32, "grid_sample", None)]
     rows, tot = [], Counter()
     err_f = err_b = 0.0
-    for shape, dtype, role in cases:
+    for shape, dtype, operands, role in cases:
         s_, b_, f_ = shape[:3]
-        preds = _tie_preds(torch, g, shape, dtype)
-        targ = _levels(torch, g, (b_, 3, HW, HW)).to(dtype)
+        if operands == "grid_sample":
+            preds = _warped_preds(torch, g, shape)
+            targ = torch.rand((b_, 3, HW, HW), device="cuda", generator=g)
+        else:
+            preds = _tie_preds(torch, g, shape, dtype, levels=operands == "levels")
+            targ = (_levels(torch, g, (b_, 3, HW, HW)) if operands == "levels"
+                    else torch.rand((b_, 3, HW, HW), device="cuda", generator=g)).to(dtype)
         cot = torch.randn((s_, b_, HW, HW), device="cuda", generator=g)
         out, ref = _fwd(preds, targ), reproj_min_plain(preds, targ)
         torch.cuda.synchronize()
         ef = (out - ref).abs().max().item()
         # Both sum the same fp32 statistics in another order; values are O(1).
-        row = {"shape": list(shape), "dtype": str(dtype), "role": role,
+        row = {"shape": list(shape), "dtype": str(dtype), "operands": operands, "role": role,
                "fwd_max_abs_err": ef, "fwd_tol": 2e-5}
         if not ef <= 2e-5:
             raise AssertionError(f"K1 disagrees with its plain version: {row}")
@@ -449,10 +509,19 @@ def phase_reproj(torch) -> dict:
             row.update(bwd_max_abs_err=diff, bwd_tol=tol, exact_tie_pixels=ties,
                        near_tie_pixels_masked=int(amb.sum().item()),
                        pixels_masked=int((~keep).sum().item()))
-            if not diff <= tol:
+            del rl, gap, amb, keep
+            if dtype == f32:
+                # K2 no farther from float64 than its plain version: its
+                # largest distance within 2x the plain version's, its RMS
+                # distance within 1.25x.
+                row.update(_k2_f64_witness(torch, preds, targ, cot, d, dref))
+                if not (row["k2_err_f64"] <= 2 * row["plain_err_f64"]
+                        and row["k2_rms_f64"] <= 1.25 * row["plain_rms_f64"]):
+                    raise AssertionError(f"K2 farther from float64 than its plain version: {row}")
+            if operands == "levels" and not diff <= tol:
                 raise AssertionError(f"K2 disagrees with its plain version: {row}")
-            err_b = max(err_b, diff)
-            del rl, gap, amb, keep, d, dref
+            err_b = max(err_b, diff) if operands == "levels" else err_b
+            del d, dref
         if role is not None:
             n_in = preds.numel() * preds.element_size() + targ.numel() * targ.element_size()
             n_pix = preds.numel()  # pixels x channels x frames x scales
@@ -591,23 +660,29 @@ def phase_train(torch) -> dict:
     # photometric path, cuDNN, the plain pool), from the same weights, batch
     # and generator seed; fp32 operands for the reprojection kernels. Both
     # are held to the same step in float64 (kernels off; the frames and the
-    # photometric loss in float64 too, the sampling coordinates fp32 as the
-    # package writes them): at 1024^2 many gradients rest on cancellations
-    # that fp32 resolves only roughly, so the kernels' route must be as close
-    # to float64 as the library's, up to 1e-3 of each gradient's own scale
-    # and 1e-6 of the step's largest gradient.
+    # photometric loss in float64 too). Some gradients pass through the CRP
+    # max-pools, whose backward routes to the maxima a forward found, so a
+    # rounding-level change upstream moves them by whatever the routing flips
+    # carry. The library route's own spread under such a change -- the same
+    # route with the model input scaled by 1 + k 2^-22, k = 1, 2 -- measures
+    # that per parameter. Each gradient of the kernels' route must be within
+    # 3 x max(the library route's distance to float64, that spread) plus
+    # 1e-3 of its own scale.
     model = build_model(torch, torch.float32, "road")
     init = copy.deepcopy(model.state_dict())
     runs = {}
-    for name, dtype, on in (("on", torch.float32, True), ("off", torch.float32, False),
-                            ("f64", torch.float64, False)):
-        run_batch = batch
+    for name, dtype, on, nudge in (("on", torch.float32, True, 0), ("off", torch.float32, False, 0),
+                                   ("off~1", torch.float32, False, 1),
+                                   ("off~2", torch.float32, False, 2),
+                                   ("f64", torch.float64, False, 0)):
+        run_batch = dict(batch, color_aug=batch["color_aug"] * (1 + nudge * 2.0 ** -22))
         if dtype == torch.float64:
             model = build_model(torch, dtype, "road").double()
             run_batch = {k: v.double() if v.is_floating_point() else v for k, v in batch.items()}
         model.load_state_dict(init)
         step = make_train_step(model, dict(TRAIN_CFG, use_pallas_reproj=on,
-                                           pallas_reproj_bf16=False), seed=0)
+                                           pallas_reproj_bf16=False), seed=0,
+                               steps_per_epoch=STEPS_PER_EPOCH)
         set_kernels(model, on, on, on)
         probes = []
         hooks = cct_probe(torch, model, probes)
@@ -623,14 +698,16 @@ def phase_train(torch) -> dict:
     for n, ref in g64.items():
         e_on = (g_on[n].double() - ref).abs().max().item()
         e_off = (g_off[n].double() - ref).abs().max().item()
-        rows.append([n, e_on, e_off, ref.abs().max().item()])
-    big = max(r[3] for r in rows)
-    for r in rows:
-        r.insert(0, r[1] / (3 * r[2] + 1e-3 * r[3] + 1e-6 * big))
+        spread = max((runs[k][1][n] - g_off[n]).abs().max().item() for k in ("off~1", "off~2"))
+        scale = ref.abs().max().item()
+        rows.append([e_on / (3 * max(e_off, spread) + 1e-3 * scale), n, e_on, e_off, spread, scale])
     rows.sort(reverse=True)
     res["fp32_on_vs_off"] = {"losses": loss_cmp, "cct_argmax_flips": flips,
-                             "largest_grad_f64": big,
+                             "largest_grad_f64": max(r[5] for r in rows),
                              "worst_grads": [list(r) for r in rows[:8]],
+                             "grads_over_own_1e-3": sum(r[2] > 1e-3 * r[5] for r in rows),
+                             "grads_over_own_1e-3_off": sum(r[3] > 1e-3 * r[5] for r in rows),
+                             "n_grads": len(rows),
                              "grad_err_on_max": max(r[2] for r in rows),
                              "grad_err_off_max": max(r[3] for r in rows)}
     log(f"train fp32 on vs off: {json.dumps(res['fp32_on_vs_off'])}")
@@ -642,7 +719,7 @@ def phase_train(torch) -> dict:
             raise AssertionError(f"fp32 train step, kernels on vs off, {k}: {v}")
     if rows[0][0] > 1:
         raise AssertionError(f"fp32 train step gradients, kernels on farther from float64 "
-                             f"than off: {rows[:4]}")
+                             f"than the library route and its spread: {rows[:4]}")
     del model, init, runs, g_on, g_off, g64
     torch.cuda.empty_cache()
 
@@ -650,7 +727,7 @@ def phase_train(torch) -> dict:
     model = build_model(torch, torch.bfloat16, "road")
     bn = model.DepthEncoder.encoder.bn1
     stats0 = (bn.running_mean.clone(), bn.running_var.clone())
-    step = make_train_step(model, TRAIN_CFG, seed=1)
+    step = make_train_step(model, TRAIN_CFG, seed=1, steps_per_epoch=STEPS_PER_EPOCH)
     losses = []
     for _ in range(20):
         losses.append(float(step(batch)["loss"]))
@@ -663,8 +740,9 @@ def phase_train(torch) -> dict:
         raise AssertionError(f"bf16 training: losses {losses}, BN change {moved}")
 
     # Frames/s, kernels on and off in turns (host clock, synchronized; B=1).
-    step_off = make_train_step(model, dict(TRAIN_CFG, use_pallas_reproj=False), seed=2)
-    step_on = make_train_step(model, TRAIN_CFG, seed=3)
+    step_off = make_train_step(model, dict(TRAIN_CFG, use_pallas_reproj=False), seed=2,
+                               steps_per_epoch=STEPS_PER_EPOCH)
+    step_on = make_train_step(model, TRAIN_CFG, seed=3, steps_per_epoch=STEPS_PER_EPOCH)
 
     def turn(on: bool, n: int = 5) -> list[float]:
         set_kernels(model, on, on, on)

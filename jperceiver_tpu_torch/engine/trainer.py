@@ -32,8 +32,8 @@ def batch_to(batch: dict, device) -> dict:
     return out
 
 
-def make_train_step(model, cfg, device=None, seed: int = 0,
-                    steps_per_epoch: int = 1000) -> Callable[..., dict]:
+def make_train_step(model, cfg, device=None, *, steps_per_epoch: int,
+                    seed: int = 0) -> Callable[..., dict]:
     """Returns `step(batch, noise=None) -> metrics` for `model` on `device`
     (CUDA by default; raises when there is no card unless the caller asks
     for the CPU).
@@ -43,8 +43,10 @@ def make_train_step(model, cfg, device=None, seed: int = 0,
     `grad_norm` (the global norm before the clip), as 0-d tensors on the
     device. The optimizer (cfg `optimizer`, `optimizer_config`,
     `lr_config`, with milestones in epochs of `steps_per_epoch`
-    iterations) lives in the closure. Dropout and the automask noise are
-    drawn from one generator on the device seeded with `seed`; `noise`
+    iterations, the length of the caller's loader, as the JAX package's
+    `build_optimizer` takes it) lives in the closure. Dropout and the
+    automask noise are drawn from one generator on the device seeded with
+    `seed`; `noise`
     replaces the automask draw. K3's gates follow the cfg keys
     `use_pallas_conv(_deep)` as in the eval step.
     """

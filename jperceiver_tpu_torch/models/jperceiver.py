@@ -23,7 +23,7 @@ from typing import Sequence
 import torch
 import torch.nn as nn
 
-from ..ops.geometry import transformation_from_parameters
+from ..ops.geometry import at_least_f32, transformation_from_parameters
 from ..ops.sampling import resize_bilinear
 from .depth_net import DepthDecoder, DepthEncoder
 from .layout_net import (CrossViewTransformer, CycledViewProjection,
@@ -92,7 +92,8 @@ class JPerceiver(nn.Module):
     def predict_poses(self, color_aug: torch.Tensor) -> dict[str, torch.Tensor]:
         """(B, F, 3, H, W) -> {"cam_T_cam/<f>": (B, 4, 4)}: frames resized
         to 192x640, pair (f, 0) for past frames and (0, f) for future ones,
-        past transforms inverted; the pose math runs in fp32."""
+        past transforms inverted; the pose math runs in fp32 (float64 in a
+        float64 model)."""
         ph, pw = POSE_INPUT_HW
         feats = {f: resize_bilinear(color_aug[:, i], ph, pw)
                  for i, f in enumerate(self.frame_ids) if f != "s"}
@@ -103,7 +104,7 @@ class JPerceiver(nn.Module):
             pair = [feats[f], feats[0]] if f < 0 else [feats[0], feats[f]]
             axisangle, translation = self._pose(torch.cat(pair, 1))
             out[f"cam_T_cam/{f}"] = transformation_from_parameters(
-                axisangle.float(), translation.float(), invert=f < 0)
+                at_least_f32(axisangle), at_least_f32(translation), invert=f < 0)
         return out
 
     def pose_between(self, img_a: torch.Tensor, img_b: torch.Tensor) -> torch.Tensor:

@@ -32,9 +32,11 @@ _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 
 def reproj_min_plain(preds: torch.Tensor, targ: torch.Tensor) -> torch.Tensor:
-    """`reproj_min_reference` in fp32: the photometric chain on the upcast
-    operands, then the chain of minimums over frames."""
-    rl = reprojection_loss(preds.float(), targ.float()[:, None])[:, :, :, 0]
+    """`reproj_min_reference` in fp32 (float64 for float64 operands): the
+    photometric chain on the upcast operands, then the chain of minimums
+    over frames."""
+    dt = torch.promote_types(preds.dtype, torch.float32)
+    rl = reprojection_loss(preds.to(dt), targ.to(dt)[:, None])[:, :, :, 0]
     best = rl[:, :, 0]
     for f in range(1, rl.shape[2]):
         best = torch.minimum(best, rl[:, :, f])
@@ -44,7 +46,8 @@ def reproj_min_plain(preds: torch.Tensor, targ: torch.Tensor) -> torch.Tensor:
 def _reproj_bwd_plain(preds, targ, cot):
     """Autograd of `reproj_min_plain`, in the preds' dtype."""
     with torch.enable_grad():
-        p = preds.detach().float().requires_grad_()
+        p = preds.detach().to(torch.promote_types(preds.dtype, torch.float32))
+        p.requires_grad_()
         (d,) = torch.autograd.grad(reproj_min_plain(p, targ), p, cot)
     return d.to(preds.dtype)
 
@@ -57,7 +60,10 @@ def _check(preds, targ):
     if tuple(targ.shape) != (b, c, h, w):
         raise ValueError(f"reproj_min: targ {tuple(targ.shape)} does not match "
                          f"preds {tuple(preds.shape)}")
-    if preds.dtype != targ.dtype or preds.dtype not in _DTYPE_CODE:
+    # float64 runs the plain version on the CPU (a reference step); the
+    # kernels take bf16 and fp32.
+    allowed = _DTYPE_CODE if preds.is_cuda else (*_DTYPE_CODE, torch.float64)
+    if preds.dtype != targ.dtype or preds.dtype not in allowed:
         raise TypeError(f"reproj_min: dtypes {preds.dtype}, {targ.dtype}; want "
                         "both bf16 or both fp32")
     if preds.device != targ.device:

@@ -2,9 +2,10 @@
 `jperceiver_tpu/ops/geometry.py`).
 
 The JAX package pins these small matmuls to `precision=HIGHEST`. Here the
-products are written as fp32 sums of products, so no TF32 or
-reduced-precision matmul can reach them whatever the global flags say;
-results come back in the input dtype. Depth maps are (B, 1, H, W).
+products are written as sums of products in fp32 (float64 for float64
+operands), so no TF32 or reduced-precision matmul can reach them whatever
+the global flags say; results come back in the input dtype. Depth maps are
+(B, 1, H, W).
 """
 
 from __future__ import annotations
@@ -12,16 +13,24 @@ from __future__ import annotations
 import torch
 
 
+def at_least_f32(t: torch.Tensor) -> torch.Tensor:
+    """t in fp32, or in float64 when it is float64."""
+    return t.to(torch.promote_types(t.dtype, torch.float32))
+
+
 def _matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """Batched a @ b summed in fp32, returned in a's dtype."""
-    prod = a.float()[..., :, :, None] * b.float()[..., None, :, :]
+    """Batched a @ b summed in at least fp32, returned in a's dtype."""
+    a32, b32 = at_least_f32(a), at_least_f32(b)
+    dt = torch.promote_types(a32.dtype, b32.dtype)
+    prod = a32.to(dt)[..., :, :, None] * b32.to(dt)[..., None, :, :]
     return prod.sum(-2).to(a.dtype)
 
 
 def bmv(a: torch.Tensor, pts: torch.Tensor) -> torch.Tensor:
-    """Batched (B, I, J) @ (B or 1, J, N), summed over j in order in fp32,
-    returned in fp32."""
-    a, pts = a.float(), pts.float()
+    """Batched (B, I, J) @ (B or 1, J, N), summed over j in order in at
+    least fp32, returned in that dtype."""
+    dt = torch.promote_types(at_least_f32(a).dtype, pts.dtype)
+    a, pts = a.to(dt), pts.to(dt)
     out = a[:, :, 0, None] * pts[:, None, 0]
     for j in range(1, a.shape[2]):
         out = out + a[:, :, j, None] * pts[:, None, j]
@@ -123,10 +132,10 @@ def _pixel_grid(height: int, width: int, device) -> torch.Tensor:
 
 def backproject(depth: torch.Tensor, inv_K: torch.Tensor) -> torch.Tensor:
     """Depth (B, 1, H, W) and inverse intrinsics (B, 4, 4) -> homogeneous
-    camera points (B, 4, H*W) fp32."""
+    camera points (B, 4, H*W), fp32 (float64 for float64 operands)."""
     b, _, h, w = depth.shape
     rays = bmv(inv_K[:, :3, :3], _pixel_grid(h, w, depth.device))
-    pts = depth.float().reshape(b, 1, h * w) * rays
+    pts = at_least_f32(depth).reshape(b, 1, h * w) * rays
     return torch.cat([pts, torch.ones_like(pts[:, :1])], 1)
 
 
@@ -134,9 +143,9 @@ def project(points: torch.Tensor, K: torch.Tensor, T: torch.Tensor,
             height: int, width: int, eps: float = 1e-7) -> torch.Tensor:
     """Camera points (B, 4, H*W) through pose T (B, 4, 4) and intrinsics K
     (B, 4, 4) -> sampling grid (B, H, W, 2) in [-1, 1], (x, y),
-    align-corners convention, fp32."""
+    align-corners convention, fp32 (float64 for float64 operands)."""
     b = points.shape[0]
-    P = _matmul(K.float(), T.float())[:, :3, :]
+    P = _matmul(at_least_f32(K), at_least_f32(T))[:, :3, :]
     cam = bmv(P, points)
     xy = cam[:, :2] / (cam[:, 2:3] + eps)
     xy = xy.reshape(b, 2, height, width).permute(0, 2, 3, 1)

@@ -1,5 +1,6 @@
-"""The port stands alone: no module of `jperceiver_tpu_torch`, nor
-`chip_smoke.py`, imports JAX, its libraries or the JAX package."""
+"""The port stands alone: no module of `jperceiver_tpu_torch`, nor the
+card scripts `chip_smoke.py` and `chip_grad_routes.py`, imports JAX, its
+libraries or the JAX package."""
 
 import ast
 from pathlib import Path
@@ -8,7 +9,8 @@ import pytest
 
 ROOT = Path(__file__).resolve().parents[1]
 FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "orbax", "jperceiver_tpu"}
-FILES = sorted((ROOT / "jperceiver_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+FILES = sorted((ROOT / "jperceiver_tpu_torch").rglob("*.py")) + [
+    ROOT / "chip_smoke.py", ROOT / "chip_grad_routes.py"]
 
 
 def _imported_roots(path: Path) -> set[str]:

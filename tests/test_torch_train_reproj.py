@@ -5,7 +5,10 @@ interpret mode here.
 
 Inputs hold exact frame ties: frame 1 copies frame 0 over the left half of
 the image, so the frame-min routes half of the cotangent to each there, by
-the `jnp.minimum` chain in both packages. Tolerances: the forward and the
+the `jnp.minimum` chain in both packages. The JAX side runs once a dtype at
+B=3 (tracing its interpreted kernels takes some 15 s a call); the port runs
+at B = 1, 2 and 3 on the first B batch elements of the same inputs, against
+the same elements of the JAX result (batch elements are independent). Tolerances: the forward and the
 fp32 gradient to 1e-5 of max(1, max |jax|) (fp32 statistics summed in
 another order); bf16 gradients to 1e-2 (one bf16 rounding of each).
 The kernels themselves run on the card: `tests/test_torch_port_cuda.py`.
@@ -34,22 +37,35 @@ def _inputs(b, seed, h=16, w=20):
     return preds, targ, cot
 
 
+_PALLAS = {}
+
+
+def _pallas_b3(dtype):
+    """Inputs at B=3 and the JAX forward and VJP on them, once a dtype."""
+    if dtype not in _PALLAS:
+        jdt, _ = _DT[dtype]
+        preds, targ, cot = _inputs(3, seed=3)
+        tj = jnp.asarray(targ, jdt)
+        want, vjp = jax.vjp(lambda p: reproj_min_pallas(p, tj, 8), jnp.asarray(preds, jdt))
+        (want_g,) = vjp(jnp.asarray(cot))
+        _PALLAS[dtype] = (preds, targ, cot, np.asarray(want), np.asarray(want_g, np.float32))
+    return _PALLAS[dtype]
+
+
 @pytest.mark.parametrize("dtype,b", [("float32", 1), ("float32", 2), ("float32", 3),
                                      ("bfloat16", 2)])
 def test_reproj_min_matches_pallas(dtype, b):
-    jdt, tdt = _DT[dtype]
-    preds, targ, cot = _inputs(b, seed=b)
-    pj, tj = jnp.asarray(preds, jdt), jnp.asarray(targ, jdt)
-    want, vjp = jax.vjp(lambda p: reproj_min_pallas(p, tj, 8), pj)
-    (want_g,) = vjp(jnp.asarray(cot))
+    _, tdt = _DT[dtype]
+    preds, targ, cot, want, want_g = _pallas_b3(dtype)
+    preds, targ, cot = preds[:, :b], targ[:b], cot[:, :b]
+    want, want_g = want[:, :b], want_g[:, :b]
 
-    pt = torch.from_numpy(preds).to(tdt).requires_grad_()
-    got = reproj_min(pt, torch.from_numpy(targ).to(tdt))
-    got.backward(torch.from_numpy(cot))
+    pt = torch.from_numpy(np.ascontiguousarray(preds)).to(tdt).requires_grad_()
+    got = reproj_min(pt, torch.from_numpy(np.ascontiguousarray(targ)).to(tdt))
+    got.backward(torch.from_numpy(np.ascontiguousarray(cot)))
     assert got.dtype == torch.float32 and pt.grad.dtype == tdt
-    assert_close(got.detach().numpy(), np.asarray(want), 1e-5, "forward")
-    assert_close(pt.grad.float().numpy(), np.asarray(want_g, np.float32),
-                 1e-5 if dtype == "float32" else 1e-2, "grad")
+    assert_close(got.detach().numpy(), want, 1e-5, "forward")
+    assert_close(pt.grad.float().numpy(), want_g, 1e-5 if dtype == "float32" else 1e-2, "grad")
 
 
 def test_reproj_ties_split_the_cotangent():
