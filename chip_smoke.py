@@ -4,9 +4,14 @@
     python3 chip_smoke.py
 
 Phases, each of which raises on failure:
-  1. the card's name and power limit; build the CUDA kernels from csrc/;
+  1. the card's name and power limit; build the CUDA kernels from csrc/,
+     and log what `nvcc -Xptxas -v` says of each (registers, shared
+     memory, spills);
   2. K3 (3x3 conv) against its plain version at every K3 site shape of the
-     1024^2 eval forward, bf16 and fp32, pad 0 and 1, timed beside F.conv2d;
+     1024^2 eval forward and training step (the same shapes), bf16 and
+     fp32, pad 0 and 1, timed beside F.conv2d, with each site's share of
+     its bound (kernel times are device times, `time_ms`; `enqueue_ms` is
+     the plain back-to-back time, which at small sites is the host's);
   3. K5 (5x5 max-pool) against its plain version, bit for bit, at the four
      CRP shapes with ties, timed beside F.max_pool2d;
   4. the eval step at 1024^2, occ 256, both BEV branches, with pose, random
@@ -23,7 +28,8 @@ Phases, each of which raises on failure:
      its plain version both held to the float64 autograd gradient;
   7. K3 as the data-grad (pad 2 and 1) and K4 (weight-grad) against their
      plain versions at every K3 site shape of the step, bf16 and fp32,
-     timed beside cuDNN's conv2d_input / conv2d_weight;
+     timed beside cuDNN's conv2d_input / conv2d_weight, with each site's
+     share of its bound; K4 run twice and held bit for bit;
   8. the flagship training step at 1024^2 (bench.py's configuration: road
      branch, B=1, Adam, clip 35), random weights from a seed: fp32 with the
      kernels on against off, both against the step in float64 (losses and
@@ -54,6 +60,9 @@ HW, OCC = 1024, 256
 # NVIDIA H100 SXM data sheet, dense: bf16 tensor cores, fp32 without tensor
 # cores, HBM3 bandwidth.
 PEAK_BF16, PEAK_FP32, HBM_BYTES_S = 989e12, 67e12, 3.35e12
+# Cycles of torch.cuda._sleep per second the host takes to enqueue the
+# timed calls: 1.5x the H100's 1.98 GHz boost clock, so the spin outlasts it.
+SPIN_CYCLES_PER_S = 3e9
 K3_SRC = "jperceiver_tpu_torch/ops/cuda/csrc/conv3x3.cu"
 K5_SRC = "jperceiver_tpu_torch/ops/cuda/csrc/maxpool5x5.cu"
 K4_SRC = "jperceiver_tpu_torch/ops/cuda/csrc/conv3x3_wgrad.cu"
@@ -79,11 +88,37 @@ def log(msg: str) -> None:
     print(msg, file=sys.stderr, flush=True)
 
 
-def time_ms(torch, fn, reps: int = 20, warmup: int = 3) -> float:
-    """Mean device time of fn() over `reps` back-to-back calls."""
+def enqueue_ms(torch, fn, reps: int = 20, warmup: int = 3) -> float:
+    """Mean time of fn() over `reps` back-to-back calls between two events:
+    the device's time where it is the slower side, else the host's time to
+    enqueue a call."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def time_ms(torch, fn, reps: int = 20, warmup: int = 3) -> float:
+    """Mean device time of fn() over `reps` back-to-back calls. The calls
+    are queued behind a spin kernel that lasts longer than the host takes to
+    enqueue them, so the events time the device running them one after
+    another, not the host enqueueing them."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    enqueue_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    torch.cuda._sleep(int(SPIN_CYCLES_PER_S * enqueue_s) + 1_000_000)
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()
@@ -99,13 +134,39 @@ def bound_ms(n_bytes: float, n_ops: float, peak: float) -> tuple[float, str]:
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
-def phase_k3(torch, sites) -> dict:
+def parse_ptxas(report: str) -> list[dict]:
+    """Per kernel: registers, spill bytes and shared memory from
+    `nvcc -Xptxas -v` output."""
+    import re
+
+    out, cur = [], None
+    for line in report.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            cur = {"kernel": m.group(1)}
+            out.append(cur)
+        elif cur is not None:
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+            if m:
+                cur["spill_stores"], cur["spill_loads"] = int(m.group(1)), int(m.group(2))
+            m = re.search(r"Used (\d+) registers", line)
+            if m:
+                cur["registers"] = int(m.group(1))
+            m = re.search(r"(\d+) bytes smem", line)
+            if m:
+                cur["static_smem"] = int(m.group(1))
+    return out
+
+
+def phase_k3(torch, sites, train_sites) -> dict:
     from jperceiver_tpu_torch.ops.cuda import conv3x3_fwd, conv3x3_plain
 
     F = torch.nn.functional
     g = torch.Generator(device="cuda").manual_seed(0)
     shapes = Counter((s["c_in"], s["c_out"], s["h"], s["w"], s["pad"])
                      for s in sites if s["k3"])
+    per_step = Counter((s["c_in"], s["c_out"], s["h"], s["w"], s["pad"])
+                       for s in train_sites if s["k3"])
     rows, max_err = [], 0.0
     tot = Counter()
     ops_t = bytes_t = 0.0
@@ -138,10 +199,16 @@ def phase_k3(torch, sites) -> dict:
                     peak = PEAK_BF16 if dtype == torch.bfloat16 else PEAK_FP32
                     bnd, by = bound_ms(n_bytes, n_ops, peak)
                     row.update(
-                        sites_per_forward=count, bound_ms=bnd, bound_by=by,
+                        sites_per_forward=count, sites_per_step=per_step[(c, o, h, w, site_pad)],
+                        bound_ms=bnd, bound_by=by,
                         ms=time_ms(torch, lambda: conv3x3_fwd(x, wt, b, pad)),
                         plain_ms=time_ms(torch, lambda: conv3x3_plain(x, wt, b, pad)),
                         library_ms=time_ms(torch, lambda: F.conv2d(x, wt, b, padding=pad)))
+                    row.update(bound_share=bnd / row["ms"],
+                               library_ratio=row["ms"] / row["library_ms"],
+                               enqueue_ms=enqueue_ms(torch, lambda: conv3x3_fwd(x, wt, b, pad)),
+                               library_enqueue_ms=enqueue_ms(
+                                   torch, lambda: F.conv2d(x, wt, b, padding=pad)))
                     if dtype == torch.bfloat16:
                         for k in ("ms", "plain_ms", "library_ms", "bound_ms"):
                             tot[k] += count * row[k]
@@ -563,7 +630,7 @@ def phase_reproj(torch) -> dict:
 def phase_conv_bwd(torch, sites) -> dict:
     """K3 as the data-grad and K4 at every K3 site shape of the step."""
     from jperceiver_tpu_torch.ops.cuda import conv3x3_plain, conv3x3_wgrad, conv3x3_wgrad_plain
-    from jperceiver_tpu_torch.ops.cuda.conv3x3 import _conv
+    from jperceiver_tpu_torch.ops.cuda.conv3x3 import _conv, _tma_operand, _wgrad_bf16
 
     grad = torch.nn.grad
     g = torch.Generator(device="cuda").manual_seed(4)
@@ -583,8 +650,11 @@ def phase_conv_bwd(torch, sites) -> dict:
             dx = _conv(gy, wflip, None, 2 - pad, "conv3x3_dgrad")
             dx_ref = conv3x3_plain(gy, wflip, None, 2 - pad)
             dw = conv3x3_wgrad(x, gy, pad)
+            dw_again = conv3x3_wgrad(x, gy, pad)
             dw_ref = conv3x3_wgrad_plain(x, gy, pad)
             torch.cuda.synchronize()
+            if not torch.equal(dw.view(torch.int32), dw_again.view(torch.int32)):
+                raise AssertionError(f"K4 differs between two runs at {(c, o, h, w, pad, dtype)}")
             ed = (dx.float() - dx_ref.float()).abs().max().item()
             sd = max(1.0, dx_ref.float().abs().max().item())
             ew = (dw - dw_ref).abs().max().item()
@@ -621,14 +691,24 @@ def phase_conv_bwd(torch, sites) -> dict:
                 bd, byd = bound_ms((o * h * w + o * c * 9 + c * hin * win) * item, n_ops, PEAK_BF16)
                 bw, byw = bound_ms((c * hin * win + o * h * w) * item + 4 * o * c * 9, n_ops,
                                    PEAK_BF16)
+                # In the step K4 reads the operand the forward made for K3 (a
+                # copy only for the 513-channel concat, timed in phase 2).
+                xh = _tma_operand(x)
                 row.update(
                     sites_per_step=count, dgrad_bound_ms=bd, wgrad_bound_ms=bw,
                     dgrad_ms=time_ms(torch, lambda: _conv(gy, wflip, None, 2 - pad, "conv3x3_dgrad"), reps=10),
                     dgrad_plain_ms=time_ms(torch, lambda: conv3x3_plain(gy, wflip, None, 2 - pad), reps=5),
                     dgrad_library_ms=time_ms(torch, lambda: grad.conv2d_input(x.shape, wt, gy, padding=pad), reps=10),
-                    wgrad_ms=time_ms(torch, lambda: conv3x3_wgrad(x, gy, pad), reps=10),
+                    wgrad_ms=time_ms(torch, lambda: _wgrad_bf16(xh, gy, pad), reps=10),
                     wgrad_plain_ms=time_ms(torch, lambda: conv3x3_wgrad_plain(x, gy, pad), reps=5),
                     wgrad_library_ms=time_ms(torch, lambda: grad.conv2d_weight(x, wt.shape, gy, padding=pad), reps=10))
+                for k in ("dgrad_", "wgrad_"):
+                    row[k + "bound_share"] = row[k + "bound_ms"] / row[k + "ms"]
+                    row[k + "library_ratio"] = row[k + "ms"] / row[k + "library_ms"]
+                row.update(
+                    dgrad_enqueue_ms=enqueue_ms(torch, lambda: _conv(gy, wflip, None, 2 - pad,
+                                                                 "conv3x3_dgrad")),
+                    wgrad_enqueue_ms=enqueue_ms(torch, lambda: _wgrad_bf16(xh, gy, pad)))
                 for k in ("ms", "plain_ms", "library_ms", "bound_ms"):
                     tot["dgrad_" + k] += count * row["dgrad_" + k]
                     tot["wgrad_" + k] += count * row["wgrad_" + k]
@@ -799,9 +879,16 @@ def phase_train(torch) -> dict:
     def count(sub):
         return sum(n for k, n in names.items() if sub in k)
 
+    def kernel_ms(sub):
+        return sum(v for k, v in busy.items() if sub in k)
+
     res["profiler"] = {
         "k1": count("reproj_fwd"), "k2": count("reproj_bwd"), "k3": count("conv3x3_bf16"),
         "k4": count("wgrad_bf16"), "k5": count("maxpool5x5_nhwc"),
+        "kernel_busy_ms": {"k1": kernel_ms("reproj_fwd"), "k2": kernel_ms("reproj_bwd"),
+                           "k3": kernel_ms("conv3x3_bf16"), "k4": kernel_ms("wgrad_bf16"),
+                           "k4_sum_splits": kernel_ms("sum_splits"),
+                           "k5": kernel_ms("maxpool5x5_nhwc")},
         "device_events": sum(names.values()), "device_busy_ms": busy_ms,
         "device_span_ms": span_ms, "idle_share": 1 - busy_ms / span_ms if span_ms else None,
         "top_kernels_ms": dict(busy.most_common(12)),
@@ -836,18 +923,23 @@ def main() -> int:
     _build.library()
     build_s = time.perf_counter() - t0
     log(f"kernels built in {build_s:.1f} s")
+    t0 = time.perf_counter()
+    ptxas = parse_ptxas(_build.ptxas_report())
+    log(f"nvcc -Xptxas -v in {time.perf_counter() - t0:.1f} s:")
+    for k in ptxas:
+        log(f"  {k}")
 
     sites = conv3x3_sites(HW, HW, OCC)
     n_k3 = sum(s["k3"] for s in sites)
-    k3 = phase_k3(torch, sites)
-    k5 = phase_k5(torch)
-    ev = phase_eval(torch)
-    st = phase_stream(torch, n_k3)
-    rp = phase_reproj(torch)
     # The training step runs the road branch only; its K3 sites are the
     # eval forward's (no layout-decoder site is eligible).
     train_sites = conv3x3_sites(HW, HW, OCC, branches="road")
     n_k3_train = sum(s["k3"] for s in train_sites)
+    k3 = phase_k3(torch, sites, train_sites)
+    k5 = phase_k5(torch)
+    ev = phase_eval(torch)
+    st = phase_stream(torch, n_k3)
+    rp = phase_reproj(torch)
     cb = phase_conv_bwd(torch, train_sites)
     tr = phase_train(torch)
 
@@ -869,10 +961,13 @@ def main() -> int:
         raise AssertionError(f"train profiler kernel counts {tp}")
 
     def entry(kid, name, src, replaces, count, err, per, bound_by):
+        lib = per["library_ms"]
         return {"id": kid, "name": name, "route": "cuda", "source": src,
                 "replaces": replaces, "launches": count, "max_abs_err": err,
                 "ms": per["ms"], "plain_ms": per["plain_ms"], "bound_ms": per["bound_ms"],
-                "bound_by": bound_by, "library_ms": per["library_ms"]}
+                "bound_by": bound_by, "library_ms": lib,
+                "bound_share": per["bound_ms"] / per["ms"],
+                "library_ratio": None if lib is None else per["ms"] / lib}
 
     rps, cbs, tl = rp["per_step"], cb["per_step"], tr["launches"]
 
@@ -897,7 +992,7 @@ def main() -> int:
     ]}
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
     with open(os.path.join(ROOT, "chiprun_out", "chip_smoke.json"), "w") as f:
-        json.dump({"card": card, "build_s": build_s, "k3_sites": n_k3,
+        json.dump({"card": card, "build_s": build_s, "ptxas": ptxas, "k3_sites": n_k3,
                    "k3": k3, "k5": k5, "eval": ev, "stream": st, "reproj": rp,
                    "conv_bwd": cb, "train": tr,
                    "seconds": time.perf_counter() - t_start, "table": table},

@@ -31,10 +31,14 @@ NVCC_FLAGS = (
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_L = ctypes.c_longlong
 # name -> argument types; every function returns a cudaError_t as int.
 _SIGNATURES = {
-    "jp_conv3x3_fwd": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
-    "jp_conv3x3_wgrad": (_P, _P, _P, _P) + (_I,) * 9 + (_P,),
+    "jp_conv3x3_fwd_bf16": (_P, _P, _P, _P, _I, _I, _I, _I, _L, _L, _L) + (_I,) * 8 + (_P,),
+    "jp_conv3x3_fwd_f32": (_P, _P, _P, _P) + (_I,) * 6 + (_P,),
+    "jp_conv3x3_wgrad_bf16": (_P, _P, _P, _P, _I, _I, _I, _I, _L, _L, _L, _I, _L, _L, _L)
+    + (_I,) * 6 + (_P,),
+    "jp_conv3x3_wgrad_f32": (_P, _P, _P, _P) + (_I,) * 10 + (_P,),
     "jp_maxpool5x5_fwd": (_P, _P, _I, _I, _I, _I, _I, _P),
     "jp_reproj_fwd": (_P, _P, _P) + (_I,) * 7 + (_P,),
     "jp_reproj_bwd": (_P, _P, _P, _P) + (_I,) * 7 + (_P,),
@@ -61,6 +65,27 @@ def library() -> ctypes.CDLL:
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
     return lib
+
+
+def ptxas_report() -> str:
+    """What `nvcc -Xptxas -v` says of every kernel (registers, shared
+    memory, spills), one `nvcc` a source, all started together; cubins go to
+    the build directory. Raises if a source does not compile."""
+    import subprocess
+
+    from torch.utils.cpp_extension import CUDA_HOME
+
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    nvcc = str(Path(CUDA_HOME) / "bin" / "nvcc")
+    procs = [subprocess.Popen(
+        [nvcc, *NVCC_FLAGS, "-Xptxas=-v", "-cubin", "-o", str(BUILD_DIR / f"{s}.cubin"),
+         str(_CSRC / s)], stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for s in SOURCES]
+    outs = [(s, p.communicate()[0], p.returncode) for s, p in zip(SOURCES, procs)]
+    for s, out, rc in outs:
+        if rc:
+            raise RuntimeError(f"nvcc failed on {s}:\n{out}")
+    return "".join(f"== {s}\n{out}" for s, out, _ in outs)
 
 
 def check(err: int, what: str) -> None:

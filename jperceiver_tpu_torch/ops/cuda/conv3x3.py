@@ -1,11 +1,14 @@
 """3x3 stride-1 convolution: kernels K3 (forward and data-grad) and K4
-(weight-grad), their plain versions, and the differentiable `conv3x3_fwd`.
+(weight-grad), their plain versions, their tile plans, and the
+differentiable `conv3x3_fwd`.
 
 Counterpart of `jperceiver_tpu/ops/pallas/conv3x3.py` (`pallas_conv3x3` for
 pad 1, `pallas_conv3x3_valid` for pad 0, each a `custom_vjp`). The kernels
 are `csrc/conv3x3.cu`, an implicit GEMM over channels-last tiles, and
-`csrc/conv3x3_wgrad.cu`, a split-M GEMM with a deterministic reduction; see
-there for their design and bound.
+`csrc/conv3x3_wgrad.cu`, a pixel-split GEMM with a deterministic reduction;
+see there for their design and bound. In bf16 both load their tiles with
+TMA, one box per tap, and multiply with wgmma; `k3_plan` and `k4_plan` say
+which boxes, and the CPU tests replay those plans with tensor slicing.
 
 Contract: operands in their input dtype (bf16 or fp32), fp32 accumulation,
 the bias added to the fp32 accumulator, the output in the input dtype.
@@ -24,6 +27,9 @@ version only for a CPU tensor.
 
 from __future__ import annotations
 
+import functools
+from dataclasses import dataclass
+
 import torch
 import torch.nn.functional as F
 
@@ -33,10 +39,170 @@ from . import _build
 # K3 as the forward, K3 as the data-grad, K4.
 LAUNCHES = {"conv3x3": 0, "conv3x3_dgrad": 0, "conv3x3_wgrad": 0}
 
-_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-_C_ALIGN = 32  # K3's K step: input channels are zero-padded to this
-_WG_TILE = 64  # K4's tile: channels and output channels are padded to this
-_WG_BK = 32    # K4's pixels a step (bf16; fp32 takes 16, a divisor)
+_DTYPES = (torch.float32, torch.bfloat16)
+_F32_C_ALIGN = 32  # fp32 K3's K step: input channels are zero-padded to this
+_F32_WG_TILE = 64  # fp32 K4's tile: channels and output channels are padded to this
+_F32_WG_BK = 32    # fp32 K4's pixel chunk granule
+
+# bf16 tiles. A TMA box holds 64 channels (one 128-byte swizzled row) of
+# box_w x box_h pixels of one image. TMA needs strides in multiples of 16
+# bytes (8 channels) and fills channels past the real count with zeros.
+_CHUNK = 64
+_K3_PIXELS, _K4_PIXELS = 128, 64
+_K3_WIDTHS, _K4_WIDTHS = (256, 176, 128, 64), (256, 128, 64)
+_BOX_WIDTHS = (128, 64, 32, 16, 8)
+
+
+def _ceil(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def channels_stored(c: int) -> int:
+    """The channel stride of a bf16 operand the wrapper has to copy (its
+    pixel stride is not a multiple of 8): whole 128-byte rows, so that no
+    64-channel box row straddles two of them (`chip_conv_sweep.py`, H100:
+    K3 at 513 -> 256 @ 256^2 took 0.266 ms on an activation stored 520 wide,
+    0.248 ms at 576). A count that needs no copy is kept."""
+    return c if c % 8 == 0 else _ceil(c, _CHUNK) * _CHUNK
+
+
+@dataclass(frozen=True)
+class TilePlan:
+    """Which TMA boxes a bf16 K3 or K4 launch reads, as its kernel computes
+    them from the block index.
+
+    The output pixels (B, Ho, Wo) are cut into tiles of box_w x box_h pixels
+    of one image, numbered x fastest, then y, then image. Input channels are
+    read 64 at a time (`kchunks` chunks), zero past `c`. K3 gives a block
+    one tile and `bn` output channels and loops over (tap, chunk); K4 gives
+    a block two (tap, chunk) items, `bn` output channels and a split of
+    `tiles_per_split` consecutive tiles, and loops over the tiles. An
+    operand that has to be copied is stored `c_store` (`o_store`) channels
+    wide; K3's output is stored `o_store` wide.
+    """
+
+    b: int
+    h: int
+    w: int
+    c: int
+    o: int
+    pad: int
+    box_w: int
+    box_h: int
+    bn: int
+    splits: int = 1
+    tiles_per_split: int = 0
+
+    @property
+    def ho(self) -> int:
+        return self.h + 2 * self.pad - 2
+
+    @property
+    def wo(self) -> int:
+        return self.w + 2 * self.pad - 2
+
+    @property
+    def tiles_x(self) -> int:
+        return _ceil(self.wo, self.box_w)
+
+    @property
+    def tiles_y(self) -> int:
+        return _ceil(self.ho, self.box_h)
+
+    @property
+    def tiles(self) -> int:
+        return self.b * self.tiles_x * self.tiles_y
+
+    @property
+    def c_store(self) -> int:
+        return channels_stored(self.c)
+
+    @property
+    def o_store(self) -> int:
+        return channels_stored(self.o)
+
+    @property
+    def kchunks(self) -> int:
+        return _ceil(self.c, _CHUNK)
+
+    @property
+    def n_tiles(self) -> int:
+        return _ceil(self.o, self.bn)
+
+    def tile_origin(self, t: int) -> tuple[int, int, int]:
+        """(image, oy0, ox0) of output tile t."""
+        tx, ty = t % self.tiles_x, (t // self.tiles_x) % self.tiles_y
+        return t // (self.tiles_x * self.tiles_y), ty * self.box_h, tx * self.box_w
+
+    def box(self, t: int, tap: int, chunk: int) -> tuple[int, int, int, int]:
+        """Coordinates (c0, x0, y0, image), innermost first, of the box of
+        the activation that output tile t reads through tap (ky*3 + kx) and
+        channel chunk `chunk`. Negative or past-the-end coordinates are
+        zero-filled by TMA: that is the padding."""
+        b, oy0, ox0 = self.tile_origin(t)
+        ky, kx = divmod(tap, 3)
+        return chunk * _CHUNK, ox0 + kx - self.pad, oy0 + ky - self.pad, b
+
+
+def _pick_box(ho: int, wo: int, pixels: int) -> tuple[int, int]:
+    """The box_w x box_h = `pixels` shape whose tiles cover (ho, wo) with
+    the fewest pixels, the widest of equals."""
+    best = None
+    for bw in _BOX_WIDTHS:
+        if bw > pixels:
+            continue
+        bh = pixels // bw
+        area = _ceil(wo, bw) * bw * _ceil(ho, bh) * bh
+        if best is None or area < best[0]:
+            best = (area, bw, bh)
+    return best[1], best[2]
+
+
+@functools.lru_cache(maxsize=512)
+def k3_plan(b: int, h: int, w: int, c: int, o: int, pad: int, sms: int = 132) -> TilePlan:
+    """The tile plan of a bf16 K3 launch on x (b, c, h, w) with o outputs:
+    tiles of 128 pixels, and the output-tile width that takes the fewest
+    waves of blocks on `sms` SMs weighed by a block's time, about bn + 53
+    (fitted to `chip_conv_sweep.py` at 256 -> 256 @ 128^2 on the H100:
+    28.6, 17.4 and 14.3 us a wave of blocks 256, 128 and 64 wide)."""
+    ho, wo = h + 2 * pad - 2, w + 2 * pad - 2
+    box_w, box_h = _pick_box(ho, wo, _K3_PIXELS)
+    tiles = b * _ceil(wo, box_w) * _ceil(ho, box_h)
+    bn = min(_K3_WIDTHS, key=lambda n: (_ceil(tiles * _ceil(o, n), sms) * (n + 53),
+                                        _ceil(o, n) * n, -n))
+    return TilePlan(b, h, w, c, o, pad, box_w, box_h, bn)
+
+
+@functools.lru_cache(maxsize=512)
+def k4_plan(b: int, h: int, w: int, c: int, o: int, pad: int, sms: int = 132) -> TilePlan:
+    """The tile plan of a bf16 K4 launch on x (b, c, h, w) and a cotangent
+    of o channels: tiles of 64 pixels, the output-tile width that covers o
+    with the fewest columns (the widest of equals), and the pixels split so
+    that the grid
+    fills the `sms` SMs in one wave, with at least 16 tiles a split (fewer
+    splits cost less to sum where a split has little to do: on the H100, 4
+    splits of 16 tiles beat 7 of 10 at 256 -> 256 @ 64^2)."""
+    ho, wo = h + 2 * pad - 2, w + 2 * pad - 2
+    box_w, box_h = _pick_box(ho, wo, _K4_PIXELS)
+    tiles = b * _ceil(wo, box_w) * _ceil(ho, box_h)
+    bn = min(_K4_WIDTHS, key=lambda n: (_ceil(o, n) * n, -n))
+    blocks = _ceil(9 * _ceil(c, _CHUNK), 2) * _ceil(o, bn)
+    splits = max(1, min(sms // blocks, tiles // 16))
+    per_split = _ceil(tiles, splits)
+    return TilePlan(b, h, w, c, o, pad, box_w, box_h, bn, _ceil(tiles, per_split), per_split)
+
+
+@functools.cache
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def _stream(t: torch.Tensor) -> int:
+    """The current CUDA stream of t's device as a raw handle, without
+    building the `torch.cuda.Stream` object that
+    `torch.cuda.current_stream(device)` returns: the step is host-bound and
+    makes 78 K3/K4 calls."""
+    return torch._C._cuda_getCurrentRawStream(t.device.index)
 
 
 def conv3x3_plain(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor | None,
@@ -67,41 +233,88 @@ def _check(x, w, pad):
             "do not form a 3x3 conv")
 
 
-def _conv(x, w, b, pad, counter):
-    """K3 for a CUDA tensor, the plain version for a CPU one; no autograd."""
+def _nhwc_padded(t: torch.Tensor, channels: int) -> torch.Tensor:
+    """(B, C, H, W) -> contiguous (B, H, W, channels), zero-padded channels;
+    no copy for a channels-last tensor that needs no padding (the fp32
+    kernels' operands)."""
+    th = t.permute(0, 2, 3, 1)
+    c = t.shape[1]
+    return F.pad(th, (0, channels - c)) if channels != c else th.contiguous()
+
+
+def _tma_operand(t: torch.Tensor) -> torch.Tensor:
+    """A (B, C, H, W) bf16 tensor as the (B, H, W, C) view a bf16 kernel
+    reads: channels contiguous, other strides multiples of 8 elements, 16-byte
+    aligned. A channels-last tensor with C a multiple of 8 is itself that
+    view; anything else is copied into a `channels_stored(C)`-wide buffer,
+    whose channels past C are never read."""
+    th = t.permute(0, 2, 3, 1)
+    if th.stride(3) == 1 and all(st % 8 == 0 for st in th.stride()[:3]) \
+            and th.data_ptr() % 16 == 0:
+        return th
+    bsz, h, w, c = th.shape
+    buf = torch.empty((bsz, h, w, channels_stored(c)), device=t.device, dtype=t.dtype)
+    buf[..., :c].copy_(th)
+    return buf[..., :c]
+
+
+def _weight_operand(w: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """(O, C, 3, 3) -> (O, 3, 3, channels_stored(C)) in `dtype`, one copy."""
+    o, c = w.shape[:2]
+    out = torch.empty((o, 3, 3, channels_stored(c)), device=w.device, dtype=dtype)
+    out[..., :c].copy_(w.permute(0, 2, 3, 1))
+    return out
+
+
+def _strides(th: torch.Tensor) -> tuple[int, int, int]:
+    """Pixel, row and image strides of a (B, H, W, C) view."""
+    return th.stride(2), th.stride(1), th.stride(0)
+
+
+def _conv(x, w, b, pad, counter, xh=None):
+    """K3 for a CUDA tensor, the plain version for a CPU one; no autograd.
+    `xh`: x as `_tma_operand` gives it, where the caller has it already."""
     if not x.is_cuda:
         return conv3x3_plain(x, w, b, pad)
-    if x.dtype not in _DTYPE_CODE:
+    if x.dtype not in _DTYPES:
         raise TypeError(f"conv3x3: dtype {x.dtype} is not bf16 or fp32")
     bsz, c, h, wd = x.shape
     o = w.shape[0]
     ho, wo = h + 2 * pad - 2, wd + 2 * pad - 2
-    cp = -(-c // _C_ALIGN) * _C_ALIGN
-    # NHWC views; channels padded with zeros up to the K step.
-    xh = x.permute(0, 2, 3, 1)
-    xh = F.pad(xh, (0, cp - c)) if cp != c else xh.contiguous()
-    wk = w.to(device=x.device, dtype=x.dtype).permute(0, 2, 3, 1)
-    wk = F.pad(wk, (0, cp - c)) if cp != c else wk.contiguous()
-    bias = None if b is None else b.to(device=x.device,
-                                       dtype=torch.float32).contiguous()
-    y = torch.empty((bsz, o, ho, wo), device=x.device, dtype=x.dtype,
-                    memory_format=torch.channels_last)
-    if xh.data_ptr() % 16 or wk.data_ptr() % 16:
-        raise ValueError("conv3x3: operands are not 16-byte aligned")
-    err = _build.library().jp_conv3x3_fwd(
-        xh.data_ptr(), wk.data_ptr(), None if bias is None else bias.data_ptr(),
-        y.data_ptr(), bsz, h, wd, cp, o, pad, _DTYPE_CODE[x.dtype],
-        torch.cuda.current_stream(x.device).cuda_stream)
+    stream = _stream(x)
+    if x.dtype == torch.bfloat16:
+        p = k3_plan(bsz, h, wd, c, o, pad, _sm_count(x.device.index))
+        xh = _tma_operand(x) if xh is None else xh
+        wk = _weight_operand(w, x.dtype)
+        # The kernel adds a bf16 bias as it is (it converts exactly), any
+        # other in fp32.
+        bias = None if b is None else b.to(
+            device=x.device, dtype=b.dtype if b.dtype == torch.bfloat16 else torch.float32)
+        ys = torch.empty((bsz, ho, wo, p.o_store), device=x.device, dtype=x.dtype)
+        err = _build.library().jp_conv3x3_fwd_bf16(
+            xh.data_ptr(), wk.data_ptr(), None if bias is None else bias.contiguous().data_ptr(),
+            ys.data_ptr(), bsz, h, wd, c, *_strides(xh), wk.shape[3], o, p.o_store, pad,
+            p.box_w, p.box_h, p.bn, int(b is not None and b.dtype == torch.bfloat16), stream)
+        y = ys.permute(0, 3, 1, 2)
+        y = y[:, :o] if p.o_store != o else y
+    else:
+        cp = _ceil(c, _F32_C_ALIGN) * _F32_C_ALIGN
+        xh, wk = _nhwc_padded(x, cp), _nhwc_padded(w.to(device=x.device, dtype=x.dtype), cp)
+        bias = None if b is None else b.to(device=x.device, dtype=torch.float32).contiguous()
+        y = torch.empty((bsz, o, ho, wo), device=x.device, dtype=x.dtype,
+                        memory_format=torch.channels_last)
+        _aligned(xh, wk)
+        err = _build.library().jp_conv3x3_fwd_f32(
+            xh.data_ptr(), wk.data_ptr(), None if bias is None else bias.data_ptr(),
+            y.data_ptr(), bsz, h, wd, cp, o, pad, stream)
     _build.check(err, "conv3x3")
     LAUNCHES[counter] += 1
     return y
 
 
-def _nhwc_padded(t: torch.Tensor, channels: int) -> torch.Tensor:
-    """(B, C, H, W) -> contiguous (B, H, W, channels), zero-padded channels."""
-    th = t.permute(0, 2, 3, 1)
-    c = t.shape[1]
-    return F.pad(th, (0, channels - c)) if channels != c else th.contiguous()
+def _aligned(*ts: torch.Tensor) -> None:
+    if any(t.data_ptr() % 16 for t in ts):
+        raise ValueError("conv3x3: operands are not 16-byte aligned")
 
 
 def conv3x3_wgrad(x: torch.Tensor, g: torch.Tensor, pad: int) -> torch.Tensor:
@@ -112,7 +325,7 @@ def conv3x3_wgrad(x: torch.Tensor, g: torch.Tensor, pad: int) -> torch.Tensor:
         raise ValueError(f"conv3x3_wgrad: pad must be 0, 1 or 2, got {pad}")
     if not x.is_cuda:
         return conv3x3_wgrad_plain(x, g, pad)
-    if x.dtype not in _DTYPE_CODE or g.dtype != x.dtype:
+    if x.dtype not in _DTYPES or g.dtype != x.dtype:
         raise TypeError(f"conv3x3_wgrad: dtypes {x.dtype}, {g.dtype}; "
                         "want one of bf16 and fp32 for both")
     bsz, c, h, wd = x.shape
@@ -120,50 +333,74 @@ def conv3x3_wgrad(x: torch.Tensor, g: torch.Tensor, pad: int) -> torch.Tensor:
     if g.shape[0] != bsz or (ho, wo) != (h + 2 * pad - 2, wd + 2 * pad - 2):
         raise ValueError(f"conv3x3_wgrad: x {tuple(x.shape)} and g "
                          f"{tuple(g.shape)} do not match at pad {pad}")
-    cp = -(-c // _WG_TILE) * _WG_TILE
-    op = -(-o // _WG_TILE) * _WG_TILE
+    if x.dtype == torch.bfloat16:
+        return _wgrad_bf16(_tma_operand(x), g, pad)
+    out = torch.empty((o, c, 3, 3), device=x.device, dtype=torch.float32)
+    cp = _ceil(c, _F32_WG_TILE) * _F32_WG_TILE
+    op = _ceil(o, _F32_WG_TILE) * _F32_WG_TILE
     xh, gh = _nhwc_padded(x, cp), _nhwc_padded(g, op)
-    if xh.data_ptr() % 16 or gh.data_ptr() % 16:
-        raise ValueError("conv3x3_wgrad: operands are not 16-byte aligned")
+    _aligned(xh, gh)
     m = bsz * ho * wo
     # Split the pixels so that about four blocks run on each SM.
-    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
-    tiles = 9 * (cp // _WG_TILE) * (op // _WG_TILE)
-    steps = -(-m // _WG_BK)
-    splits = max(1, min(-(-4 * sms // tiles), steps // 16))
-    chunk = -(-steps // splits) * _WG_BK
-    splits = -(-m // chunk)
+    sms = _sm_count(x.device.index)
+    tiles = 9 * (cp // _F32_WG_TILE) * (op // _F32_WG_TILE)
+    steps = _ceil(m, _F32_WG_BK)
+    splits = max(1, min(_ceil(4 * sms, tiles), steps // 16))
+    chunk = _ceil(steps, splits) * _F32_WG_BK
+    splits = _ceil(m, chunk)
     partial = torch.empty((splits, 9, cp, op), device=x.device, dtype=torch.float32)
-    out = torch.empty((9, cp, op), device=x.device, dtype=torch.float32)
-    err = _build.library().jp_conv3x3_wgrad(
+    err = _build.library().jp_conv3x3_wgrad_f32(
         xh.data_ptr(), gh.data_ptr(), partial.data_ptr(), out.data_ptr(),
-        bsz, h, wd, cp, op, pad, chunk, splits, _DTYPE_CODE[x.dtype],
-        torch.cuda.current_stream(x.device).cuda_stream)
+        bsz, h, wd, c, cp, o, op, pad, chunk, splits, _stream(x))
     _build.check(err, "conv3x3_wgrad")
     LAUNCHES["conv3x3_wgrad"] += 1
-    return out[:, :c, :o].permute(2, 1, 0).reshape(o, c, 3, 3)
+    return out
+
+
+def _wgrad_bf16(xh: torch.Tensor, g: torch.Tensor, pad: int) -> torch.Tensor:
+    """K4 in bf16 on x as `_tma_operand` gives it, (B, H, W, C)."""
+    bsz, h, wd, c = xh.shape
+    o = g.shape[1]
+    p = k4_plan(bsz, h, wd, c, o, pad, _sm_count(xh.device.index))
+    gh = _tma_operand(g)
+    out = torch.empty((o, c, 3, 3), device=xh.device, dtype=torch.float32)
+    partial = torch.empty((p.splits, 9, _CHUNK * p.kchunks, p.bn * p.n_tiles),
+                          device=xh.device, dtype=torch.float32)
+    err = _build.library().jp_conv3x3_wgrad_bf16(
+        xh.data_ptr(), gh.data_ptr(), partial.data_ptr(), out.data_ptr(),
+        bsz, h, wd, c, *_strides(xh), o, *_strides(gh), pad, p.box_w, p.box_h, p.bn,
+        p.splits, p.tiles_per_split, _stream(xh))
+    _build.check(err, "conv3x3_wgrad")
+    LAUNCHES["conv3x3_wgrad"] += 1
+    return out
 
 
 class _Conv3x3(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, w, b, pad):
-        ctx.save_for_backward(x, w)
         ctx.pad = pad
         ctx.bias_dtype = None if b is None else b.dtype
-        return _conv(x, w, b, pad, "conv3x3")
+        # bf16 on the card: the operand K3 reads is the one K4 reads in the
+        # backward, so a copy made for TMA (the 513-channel concat) is made
+        # once and saved instead of x.
+        xh = _tma_operand(x) if x.is_cuda and x.dtype == torch.bfloat16 else None
+        ctx.save_for_backward(x if xh is None else xh, w)
+        return _conv(x, w, b, pad, "conv3x3", xh)
 
     @staticmethod
     def backward(ctx, g):
         x, w = ctx.saved_tensors
         pad = ctx.pad
         dx = dw = db = None
+        nhwc = x.is_cuda and x.dtype == torch.bfloat16
+        dtype = x.dtype
         if ctx.needs_input_grad[0]:
             # (O, C, ky, kx) -> (C, O, 2-ky, 2-kx): the data-grad is a conv.
             wt = w.flip(2, 3).transpose(0, 1)
-            dx = _conv(g.to(x.dtype), wt.to(x.dtype), None, 2 - pad,
-                       "conv3x3_dgrad")
+            dx = _conv(g.to(dtype), wt.to(dtype), None, 2 - pad, "conv3x3_dgrad")
         if ctx.needs_input_grad[1]:
-            dw = conv3x3_wgrad(x, g.to(x.dtype), pad).to(w.dtype)
+            gd = g.to(dtype)
+            dw = (_wgrad_bf16(x, gd, pad) if nhwc else conv3x3_wgrad(x, gd, pad)).to(w.dtype)
         if ctx.bias_dtype is not None and ctx.needs_input_grad[2]:
             db = g.float().sum((0, 2, 3)).to(ctx.bias_dtype)
         return dx, dw, db, None

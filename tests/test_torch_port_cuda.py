@@ -117,6 +117,74 @@ def test_conv3x3_backward_kernels(cuda, dtype, c, o, pad):
     torch.testing.assert_close(b.grad.float(), gy.float().sum((0, 2, 3)), rtol=1e-2, atol=1e-2)
 
 
+# (B, C, O, H, W, pad) of the bf16 kernels' tile paths (the fp32 kernels run
+# them too): a width that is not a multiple of the 128-pixel box, so tail
+# tiles run; W = 64 (the 64x2 box) and W < 64; pad 2 with 513 outputs (the
+# iconv's data-grad, stored 576 wide); C = 544 (half a channel chunk) and
+# 576; B = 2, so boxes meet the image edge; O = 8, below one wgmma n-tile.
+_TILE_CASES = [(1, 64, 64, 9, 200, 1), (1, 64, 64, 64, 64, 1), (1, 16, 24, 40, 40, 1),
+               (1, 256, 513, 18, 20, 2), (1, 544, 64, 12, 30, 0), (1, 576, 64, 12, 30, 1),
+               (2, 64, 64, 20, 33, 1), (1, 64, 8, 16, 40, 1)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,c,o,h,w,pad", _TILE_CASES)
+def test_conv3x3_tile_paths(cuda, dtype, b, c, o, h, w, pad):
+    """K3 forward, K3 as the data-grad (pad 2 - pad) and K4 against their
+    plain versions at shapes that reach each tile path."""
+    from jperceiver_tpu_torch.ops.cuda import conv3x3_wgrad, conv3x3_wgrad_plain
+    from jperceiver_tpu_torch.ops.cuda.conv3x3 import _conv
+
+    g = torch.Generator(device=cuda).manual_seed(c + o + pad)
+    x = torch.randn(b, c, h, w, device=cuda, generator=g).to(dtype)
+    x = x.contiguous(memory_format=torch.channels_last)
+    wt = (torch.randn(o, c, 3, 3, device=cuda, generator=g) / math.sqrt(9 * c)).to(dtype)
+    bias = torch.randn(o, device=cuda, generator=g).to(dtype)
+    tol = 1e-4 if dtype == torch.float32 else 1e-2
+    reset_launch_counts()
+    y = conv3x3_fwd(x, wt, bias, pad)
+    ref = conv3x3_plain(x, wt, bias, pad)
+    torch.cuda.synchronize()
+    assert y.shape == ref.shape and y.dtype == dtype
+    assert (y.float() - ref.float()).abs().max().item() <= tol * max(1.0, ref.float().abs().max().item())
+    gy = torch.randn(y.shape, device=cuda, generator=g).to(dtype)
+    wflip = wt.flip(2, 3).transpose(0, 1)
+    dx = _conv(gy, wflip, None, 2 - pad, "conv3x3_dgrad")
+    dx_ref = conv3x3_plain(gy, wflip, None, 2 - pad)
+    dw = conv3x3_wgrad(x, gy, pad)
+    dw_ref = conv3x3_wgrad_plain(x, gy, pad)
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    assert (counts["conv3x3"], counts["conv3x3_dgrad"], counts["conv3x3_wgrad"]) == (1, 1, 1)
+    assert dx.shape == x.shape
+    assert (dx.float() - dx_ref.float()).abs().max().item() <= tol * max(
+        1.0, dx_ref.float().abs().max().item())
+    # K4's result is fp32 in both dtypes: fp32 sums in another order.
+    assert dw.shape == (o, c, 3, 3) and dw.dtype == torch.float32
+    assert (dw - dw_ref).abs().max().item() <= 1e-4 * dw_ref.abs().max().item()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_conv3x3_wgrad_splits_and_repeats_bit_for_bit(cuda, dtype):
+    """A K4 problem whose pixels the plan splits, run twice: the same bits,
+    and the plain version's values."""
+    from jperceiver_tpu_torch.ops.cuda import conv3x3_wgrad, conv3x3_wgrad_plain
+    from jperceiver_tpu_torch.ops.cuda.conv3x3 import _sm_count, k4_plan
+
+    assert k4_plan(2, 64, 96, 128, 128, 1, _sm_count(cuda.index or 0)).splits > 1
+    g = torch.Generator(device=cuda).manual_seed(5)
+    x = torch.randn(2, 128, 64, 96, device=cuda, generator=g).to(dtype)
+    x = x.contiguous(memory_format=torch.channels_last)
+    gy = torch.randn(2, 128, 64, 96, device=cuda, generator=g).to(dtype)
+    gy = gy.contiguous(memory_format=torch.channels_last)
+    a = conv3x3_wgrad(x, gy, 1)
+    b = conv3x3_wgrad(x, gy, 1)
+    ref = conv3x3_wgrad_plain(x, gy, 1)
+    torch.cuda.synchronize()
+    assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+    assert (a - ref).abs().max().item() <= 1e-4 * ref.abs().max().item()
+
+
 @pytest.mark.parametrize("dtype,b", [(torch.float32, 1), (torch.bfloat16, 1),
                                      (torch.bfloat16, 2), (torch.float32, 3)])
 @pytest.mark.parametrize("h,w", [(37, 45), (2, 3)])

@@ -1,6 +1,6 @@
 """The port stands alone: no module of `jperceiver_tpu_torch`, nor the
-card scripts `chip_smoke.py` and `chip_grad_routes.py`, imports JAX, its
-libraries or the JAX package."""
+card scripts `chip_smoke.py`, `chip_grad_routes.py` and
+`chip_conv_sweep.py`, imports JAX, its libraries or the JAX package."""
 
 import ast
 from pathlib import Path
@@ -10,7 +10,7 @@ import pytest
 ROOT = Path(__file__).resolve().parents[1]
 FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "orbax", "jperceiver_tpu"}
 FILES = sorted((ROOT / "jperceiver_tpu_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py", ROOT / "chip_grad_routes.py"]
+    ROOT / "chip_smoke.py", ROOT / "chip_grad_routes.py", ROOT / "chip_conv_sweep.py"]
 
 
 def _imported_roots(path: Path) -> set[str]:
