@@ -12,20 +12,24 @@ Phases, each of which raises on failure:
      fp32, pad 0 and 1, timed beside F.conv2d, with each site's share of
      its bound (kernel times are device times, `time_ms`; `enqueue_ms` is
      the plain back-to-back time, which at small sites is the host's);
-  3. K5 (5x5 max-pool) against its plain version, bit for bit, at the four
-     CRP shapes with ties, timed beside F.max_pool2d;
+  3. K5 (5x5 max-pool) and its backward kernel against their plain
+     versions, bit for bit, at the four CRP shapes with ties, bf16 and fp32,
+     timed beside F.max_pool2d and (for scale only: it routes a tie to one
+     input) F.max_pool2d's backward; the plain backward's device operations
+     counted in a profiler trace;
   4. the eval step at 1024^2, occ 256, both BEV branches, with pose, random
      weights from a seed: fp32 with the kernels on against off (cuDNN and
      the plain pool, TF32 off), bf16 finite and timed both ways, kernel
      launches counted on the main path and in a profiler trace;
   5. streaming inference over 9 frames at 1024^2 in bf16, chunk 4, its
      kernel launches counted and its rotations checked orthonormal;
-  6. K1/K2 (reprojection loss forward/backward) against their plain
-     versions at the training step's shapes, bf16 and fp32, and B=2 bf16,
-     with exact frame ties, timed beside the plain versions and the ATen
-     path (reprojection_loss + amin, forward and autograd backward); in
-     fp32 also on arbitrary pixels and on grid_sample outputs, with K2 and
-     its plain version both held to the float64 autograd gradient;
+  6. K1/K2 (reprojection loss forward/backward; K2 routed by K1's code)
+     against their plain versions at the training step's shapes, bf16 and
+     fp32, B=2 bf16 and F=3, with exact frame ties, timed beside the plain
+     versions and the ATen path (reprojection_loss + amin, forward and
+     autograd backward); in fp32 also on arbitrary pixels and on
+     grid_sample outputs, with K2 and its plain version both held to the
+     float64 autograd gradient (and their ratio logged);
   7. K3 as the data-grad (pad 2 and 1) and K4 (weight-grad) against their
      plain versions at every K3 site shape of the step, bf16 and fp32,
      timed beside cuDNN's conv2d_input / conv2d_weight, with each site's
@@ -37,8 +41,9 @@ Phases, each of which raises on failure:
      change of the input sets each gradient's bound), bf16 for 20 steps on
      one batch (finite, falling loss, BatchNorm statistics moving),
      frames/s with the kernels on and off in turns, the kernel launches of
-     one step from the counters and a profiler trace, its device busy time,
-     idle share and peak memory.
+     one step from the counters and a profiler trace (the pools' backward
+     kernel 16 times, no cotangent copied), its device operations, busy
+     time, idle share and peak memory.
 
 Prints the card line, a JSON line describing every kernel, and last the
 device line. Full results go to chiprun_out/chip_smoke.json. Exits non-zero
@@ -221,41 +226,80 @@ def phase_k3(torch, sites, train_sites) -> dict:
 
 
 def phase_k5(torch) -> dict:
-    from jperceiver_tpu_torch.ops.cuda import maxpool5x5_fwd, maxpool5x5_plain
+    from jperceiver_tpu_torch.ops.cuda import (maxpool5x5_bwd, maxpool5x5_bwd_plain,
+                                               maxpool5x5_fwd, maxpool5x5_plain)
 
     F = torch.nn.functional
+    aten = torch.ops.aten
     g = torch.Generator(device="cuda").manual_seed(1)
     rows = []
     tot = Counter()
-    cases = [(256, s, torch.bfloat16, 4) for s in (32, 64, 128, 256)]
-    cases += [(256, 64, torch.float32, 0), (13, 20, torch.bfloat16, 0)]
+    # (channels, size, dtype, pools a step): the four CRP shapes in bf16
+    # (timed) and fp32, and 13 channels (one channel a vector).
+    cases = [(256, s, dt, 4 if dt == torch.bfloat16 else 0)
+             for s in (32, 64, 128, 256) for dt in (torch.bfloat16, torch.float32)]
+    cases += [(13, 20, torch.bfloat16, 0)]
     for c, s, dtype, per_forward in cases:
         # Quarter steps through a ReLU: zero plateaus and repeated values.
         x = torch.relu(torch.round(4 * torch.randn(1, c, s, s, device="cuda",
                                                    generator=g)) / 4)
         x = x.to(dtype).contiguous(memory_format=torch.channels_last)
+        cot = torch.randn(1, c, s, s, device="cuda", generator=g).to(dtype)
+        cot = cot.contiguous(memory_format=torch.channels_last)
         y = maxpool5x5_fwd(x)
         ref = maxpool5x5_plain(x)
+        dx = maxpool5x5_bwd(x, y, cot)
+        dref = maxpool5x5_bwd_plain(x, ref, cot)
         torch.cuda.synchronize()
         row = {"c": c, "h": s, "w": s, "dtype": str(dtype),
                "bit_exact": bool(torch.equal(y, ref)),
-               "max_abs_err": (y.float() - ref.float()).abs().max().item()}
-        if not row["bit_exact"]:
-            raise AssertionError(f"K5 differs from its plain version: {row}")
+               "max_abs_err": (y.float() - ref.float()).abs().max().item(),
+               "bwd_bit_exact": bool(torch.equal(dx, dref)),
+               "bwd_max_abs_err": (dx.float() - dref.float()).abs().max().item(),
+               "bwd_nonzero": int((dref != 0).sum().item())}
+        if not (row["bit_exact"] and row["bwd_bit_exact"]):
+            raise AssertionError(f"K5 or its backward differs from its plain version: {row}")
         if per_forward:
             n = x.numel()
             bnd, by = bound_ms(2 * n * x.element_size(), 24.0 * n, PEAK_FP32)
+            # The backward reads x, y and g and writes dx; about 30 fp32
+            # operations an element (r, two routes of 5 compares and adds).
+            bbnd, bby = bound_ms(4 * n * x.element_size(), 30.0 * n, PEAK_FP32)
+            _, idx = aten.max_pool2d_with_indices(x, [5, 5], [1, 1], [2, 2])
             row.update(
                 pools_per_forward=per_forward, bound_ms=bnd, bound_by=by,
                 ms=time_ms(torch, lambda: maxpool5x5_fwd(x)),
                 plain_ms=time_ms(torch, lambda: maxpool5x5_plain(x)),
-                library_ms=time_ms(torch, lambda: F.max_pool2d(x, 5, 1, 2)))
+                library_ms=time_ms(torch, lambda: F.max_pool2d(x, 5, 1, 2)),
+                bwd_bound_ms=bbnd, bwd_bound_by=bby,
+                bwd_ms=time_ms(torch, lambda: maxpool5x5_bwd(x, y, cot)),
+                bwd_plain_ms=time_ms(torch, lambda: maxpool5x5_bwd_plain(x, y, cot)),
+                # A different function (one input a window gets the
+                # cotangent), timed for scale only.
+                bwd_max_pool2d_ms=time_ms(torch, lambda: aten.max_pool2d_with_indices_backward(
+                    cot, x, [5, 5], [1, 1], [2, 2], [1, 1], False, idx)))
             for k in ("ms", "plain_ms", "library_ms", "bound_ms"):
                 tot[k] += per_forward * row[k]
+                tot["bwd_" + k] += per_forward * row.get("bwd_" + k, 0.0)
+            tot["bwd_max_pool2d_ms"] += per_forward * row["bwd_max_pool2d_ms"]
+            if s == 256:
+                from torch.profiler import ProfilerActivity, profile
+
+                with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                    maxpool5x5_bwd_plain(x, y, cot)
+                    torch.cuda.synchronize()
+                row["plain_bwd_device_ops"] = sum(
+                    1 for e in prof.events() if e.device_type.name == "CUDA")
         rows.append(row)
         log(f"K5 {row}")
+    per_bwd = {k[4:]: v for k, v in tot.items() if k.startswith("bwd_")}
+    per_bwd["library_ms"] = None  # no PyTorch call routes a tie to every maximum
     return {"rows": rows, "max_abs_err": max(r["max_abs_err"] for r in rows),
-            "per_forward": dict(tot), "bound_by": "bytes"}
+            "bwd_max_abs_err": max(r["bwd_max_abs_err"] for r in rows),
+            "per_forward": {k: v for k, v in tot.items() if not k.startswith("bwd_")},
+            "per_step_bwd": per_bwd, "bound_by": "bytes",
+            "plain_bwd_device_ops": next(r["plain_bwd_device_ops"] for r in rows
+                                         if "plain_bwd_device_ops" in r)}
 
 
 def build_model(torch, dtype, branches="both"):
@@ -465,11 +509,27 @@ def _levels(torch, g, shape):
 
 def _tie_preds(torch, g, shape, dtype, levels=True):
     """Random preds whose frame 1 copies frame 0 over the left half of the
-    image: exact frame ties there."""
+    image and frame 2 over the top half: exact frame ties there."""
     p = _levels(torch, g, shape) if levels else torch.rand(shape, device="cuda", generator=g)
     if shape[2] > 1:
         p[:, :, 1, ..., : shape[-1] // 2] = p[:, :, 0, ..., : shape[-1] // 2]
+    if shape[2] > 2:
+        p[:, :, 2, :, : shape[-2] // 2] = p[:, :, 0, :, : shape[-2] // 2]
     return p.to(dtype)
+
+
+def _near_ties(torch, rl, gap_max=1e-5):
+    """Pixels (S, B, H, W) where two frames' losses differ by less than
+    gap_max but are not equal (fp32 may route them either way), and the
+    count of exactly tied frame pairs."""
+    amb = torch.zeros_like(rl[:, :, 0], dtype=torch.bool)
+    ties = 0
+    for f in range(rl.shape[2]):
+        for f2 in range(f + 1, rl.shape[2]):
+            gap = (rl[:, :, f] - rl[:, :, f2]).abs()
+            amb |= (gap > 0) & (gap < gap_max)
+            ties += int((gap == 0).sum().item())
+    return amb, ties
 
 
 def _warped_preds(torch, g, shape):
@@ -503,9 +563,8 @@ def _k2_f64_witness(torch, preds, targ, cot, d, dref) -> dict:
         for f in range(1, rl.shape[2]):
             best = torch.minimum(best, rl[:, :, f])
         (g64,) = torch.autograd.grad(best, p, cot.double())
-    rl = rl.detach()
-    gap = (rl[:, :, 0] - rl[:, :, 1]).abs()
-    amb = ((gap > 0) & (gap < 1e-5)).float().reshape(s_ * b_, 1, h, w)
+    amb, _ = _near_ties(torch, rl.detach())
+    amb = amb.float().reshape(s_ * b_, 1, h, w)
     keep = (F.max_pool2d(amb, 5, 1, 2) == 0).reshape(s_, b_, 1, 1, h, w)
     ek = (d.double() - g64) * keep
     ep = (dref.double() - g64) * keep
@@ -513,6 +572,8 @@ def _k2_f64_witness(torch, preds, targ, cot, d, dref) -> dict:
            "k2_rms_f64": ek.pow(2).mean().sqrt().item(),
            "plain_rms_f64": ep.pow(2).mean().sqrt().item(),
            "grad_f64_max": g64.abs().max().item(), "f64_pixels_masked": int((~keep).sum().item())}
+    out["k2_over_plain_max"] = out["k2_err_f64"] / out["plain_err_f64"]
+    out["k2_over_plain_rms"] = out["k2_rms_f64"] / out["plain_rms_f64"]
     del p, rl, best, g64, ek, ep
     return out
 
@@ -527,18 +588,20 @@ def phase_reproj(torch) -> dict:
     bf16, f32 = torch.bfloat16, torch.float32
     # (shape, dtype, operands, role in one training step): the warped stack
     # and the automask identity pairs at B=1 in bf16 (the flagship's
-    # operands), B=2 in bf16, and in fp32 the warped stack on 8-bit levels,
-    # on arbitrary fp32 pixels and on grid_sample outputs. On 8-bit levels
-    # the window sums are exact in both versions; on the other fp32
-    # operands both versions round them, and each is held to the float64
-    # gradient as well as to the other.
+    # operands), B=2 in bf16, three frames in bf16 and fp32, and in fp32 the
+    # warped stack on 8-bit levels, on arbitrary fp32 pixels and on
+    # grid_sample outputs. On 8-bit levels the window sums are exact in both
+    # versions; on the other fp32 operands both versions round them, and
+    # each is held to the float64 gradient as well as to the other.
     cases = [((4, 1, 2, 3, HW, HW), bf16, "levels", "warped"),
              ((2, 1, 1, 3, HW, HW), bf16, "levels", "identity"),
              ((4, 2, 2, 3, HW, HW), bf16, "levels", None),
+             ((4, 1, 3, 3, HW, HW), bf16, "levels", None),
+             ((4, 1, 3, 3, HW, HW), f32, "levels", None),
              ((4, 1, 2, 3, HW, HW), f32, "levels", None),
              ((4, 1, 2, 3, HW, HW), f32, "arbitrary", None),
              ((4, 1, 2, 3, HW, HW), f32, "grid_sample", None)]
-    rows, tot = [], Counter()
+    rows, tot, f64_ratios = [], Counter(), {}
     err_f = err_b = 0.0
     for shape, dtype, operands, role in cases:
         s_, b_, f_ = shape[:3]
@@ -550,7 +613,7 @@ def phase_reproj(torch) -> dict:
             targ = (_levels(torch, g, (b_, 3, HW, HW)) if operands == "levels"
                     else torch.rand((b_, 3, HW, HW), device="cuda", generator=g)).to(dtype)
         cot = torch.randn((s_, b_, HW, HW), device="cuda", generator=g)
-        out, ref = _fwd(preds, targ), reproj_min_plain(preds, targ)
+        (out, code), ref = _fwd(preds, targ, route=f_ > 1), reproj_min_plain(preds, targ)
         torch.cuda.synchronize()
         ef = (out - ref).abs().max().item()
         # Both sum the same fp32 statistics in another order; values are O(1).
@@ -560,28 +623,29 @@ def phase_reproj(torch) -> dict:
             raise AssertionError(f"K1 disagrees with its plain version: {row}")
         err_f = max(err_f, ef)
         if f_ > 1:
-            d, dref = _bwd(preds, targ, cot), _reproj_bwd_plain(preds, targ, cot)
+            d, dref = _bwd(preds, targ, cot, code), _reproj_bwd_plain(preds, targ, cot)
             # A frame-min decided by less than the two versions' rounding may
             # route a pixel's cotangent to the other frame; the gradient of a
             # pixel reads the routing within 2 pixels of it. Exact ties (the
-            # copied half) are ties in both and stay in the comparison.
+            # copied halves) are ties in both and stay in the comparison.
             rl = reprojection_loss(preds.float(), targ.float()[:, None])[:, :, :, 0]
-            gap = (rl[:, :, 0] - rl[:, :, 1]).abs()
-            amb = ((gap > 0) & (gap < 1e-5)).float().reshape(s_ * b_, 1, HW, HW)
+            amb, ties = _near_ties(torch, rl)
+            amb = amb.float().reshape(s_ * b_, 1, HW, HW)
             keep = (F.max_pool2d(amb, 5, 1, 2) == 0).reshape(s_, b_, 1, 1, HW, HW)
             diff = ((d.float() - dref.float()).abs() * keep).max().item()
             scale = dref.float().abs().max().item()
             tol = (1e-4 if dtype == f32 else 1e-2) * scale
-            ties = (rl[:, :, 0] == rl[:, :, 1]).sum().item()
             row.update(bwd_max_abs_err=diff, bwd_tol=tol, exact_tie_pixels=ties,
                        near_tie_pixels_masked=int(amb.sum().item()),
                        pixels_masked=int((~keep).sum().item()))
-            del rl, gap, amb, keep
+            del rl, amb, keep
             if dtype == f32:
                 # K2 no farther from float64 than its plain version: its
                 # largest distance within 2x the plain version's, its RMS
                 # distance within 1.25x.
                 row.update(_k2_f64_witness(torch, preds, targ, cot, d, dref))
+                f64_ratios[f"{operands}, F={f_}"] = {
+                    k: row[k] for k in ("k2_over_plain_max", "k2_over_plain_rms")}
                 if not (row["k2_err_f64"] <= 2 * row["plain_err_f64"]
                         and row["k2_rms_f64"] <= 1.25 * row["plain_rms_f64"]):
                     raise AssertionError(f"K2 farther from float64 than its plain version: {row}")
@@ -597,8 +661,10 @@ def phase_reproj(torch) -> dict:
             def lib_fwd():
                 return reprojection_loss(preds, targ[:, None]).amin(2)[:, :, 0]
 
+            # As in the step: the warped stack asks K1 for the routing code.
+            route = role == "warped"
             row.update(bound_ms=bnd, bound_by=by,
-                       ms=time_ms(torch, lambda: _fwd(preds, targ), reps=10),
+                       ms=time_ms(torch, lambda: _fwd(preds, targ, route), reps=10),
                        plain_ms=time_ms(torch, lambda: reproj_min_plain(preds, targ), reps=5),
                        library_ms=time_ms(torch, lib_fwd, reps=5))
             for k in ("ms", "plain_ms", "library_ms", "bound_ms"):
@@ -612,7 +678,7 @@ def phase_reproj(torch) -> dict:
                 bnd, by = bound_ms(2 * n_in + 4 * s_ * b_ * HW * HW,
                                    REPROJ_OPS_BWD * n_pix, PEAK_FP32)
                 row.update(bwd_bound_ms=bnd, bwd_bound_by=by,
-                           bwd_ms=time_ms(torch, lambda: _bwd(preds, targ, cot), reps=10),
+                           bwd_ms=time_ms(torch, lambda: _bwd(preds, targ, cot, code), reps=10),
                            bwd_plain_ms=time_ms(
                                torch, lambda: _reproj_bwd_plain(preds, targ, cot), reps=5),
                            bwd_library_ms=time_ms(torch, lib_fwd_bwd, reps=5) - row["library_ms"])
@@ -621,10 +687,11 @@ def phase_reproj(torch) -> dict:
                 tot["bound_by_fwd"], tot["bound_by_bwd"] = row["bound_by"], by
         rows.append(row)
         log(f"K1/K2 {row}")
-        del preds, targ, cot, out, ref
+        del preds, targ, cot, out, ref, code
         torch.cuda.empty_cache()
+    log(f"K2 / plain distance to float64 (max, RMS): {f64_ratios}")
     return {"rows": rows, "k1_max_abs_err": err_f, "k2_max_abs_err": err_b,
-            "per_step": dict(tot)}
+            "per_step": dict(tot), "k2_f64_ratios": f64_ratios}
 
 
 def phase_conv_bwd(torch, sites) -> dict:
@@ -885,16 +952,18 @@ def phase_train(torch) -> dict:
     res["profiler"] = {
         "k1": count("reproj_fwd"), "k2": count("reproj_bwd"), "k3": count("conv3x3_bf16"),
         "k4": count("wgrad_bf16"), "k5": count("maxpool5x5_nhwc"),
+        "k5_bwd": count("maxpool5x5_bwd_nhwc"),
         "kernel_busy_ms": {"k1": kernel_ms("reproj_fwd"), "k2": kernel_ms("reproj_bwd"),
                            "k3": kernel_ms("conv3x3_bf16"), "k4": kernel_ms("wgrad_bf16"),
                            "k4_sum_splits": kernel_ms("sum_splits"),
-                           "k5": kernel_ms("maxpool5x5_nhwc")},
+                           "k5": kernel_ms("maxpool5x5_nhwc"),
+                           "k5_bwd": kernel_ms("maxpool5x5_bwd_nhwc")},
         "device_events": sum(names.values()), "device_busy_ms": busy_ms,
         "device_span_ms": span_ms, "idle_share": 1 - busy_ms / span_ms if span_ms else None,
         "top_kernels_ms": dict(busy.most_common(12)),
     }
     log(f"train launches {res['launches']}; peak {res['peak_memory_gb']:.2f} GB; "
-        f"profiler {res['profiler']}")
+        f"device operations {res['profiler']['device_events']}; profiler {res['profiler']}")
     return res
 
 
@@ -951,13 +1020,16 @@ def main() -> int:
     if (prof["k3"], prof["k5"]) != (n_k3, 16):
         raise AssertionError(f"eval profiler kernel counts {prof}, expected "
                              f"K3 {n_k3} and K5 16")
+    # No cotangent of a pool reaches its backward kernel in another memory
+    # format than channels-last (maxpool5x5_bwd_cot_copy counts the copies).
     want = {"conv3x3": n_k3_train, "conv3x3_dgrad": n_k3_train,
-            "conv3x3_wgrad": n_k3_train, "maxpool5x5": 16, "reproj_fwd": 2, "reproj_bwd": 1}
+            "conv3x3_wgrad": n_k3_train, "maxpool5x5": 16, "maxpool5x5_bwd": 16,
+            "maxpool5x5_bwd_cot_copy": 0, "reproj_fwd": 2, "reproj_bwd": 1}
     if tr["launches"] != want:
         raise AssertionError(f"train main-path launches {tr['launches']}, expected {want}")
     tp = tr["profiler"]
-    if (tp["k1"], tp["k2"], tp["k3"], tp["k4"], tp["k5"]) != (2, 1, 2 * n_k3_train,
-                                                                n_k3_train, 16):
+    if (tp["k1"], tp["k2"], tp["k3"], tp["k4"], tp["k5"], tp["k5_bwd"]) != (
+            2, 1, 2 * n_k3_train, n_k3_train, 16, 16):
         raise AssertionError(f"train profiler kernel counts {tp}")
 
     def entry(kid, name, src, replaces, count, err, per, bound_by):
@@ -989,6 +1061,12 @@ def main() -> int:
               tl["conv3x3_wgrad"], cb["wgrad_max_abs_err"], pick(cbs, "wgrad_"), cb["bound_by"]),
         entry("K5", "maxpool5x5_fwd", K5_SRC, "jperceiver_tpu/ops/pallas/maxpool.py:183",
               tl["maxpool5x5"], k5["max_abs_err"], k5["per_forward"], k5["bound_by"]),
+        # The backward is `_mp_bwd`, XLA in JAX (no Pallas kernel); no
+        # PyTorch call routes a tie to every maximum, so library_ms is null.
+        dict(entry("K5-bwd", "maxpool5x5_bwd", K5_SRC, "jperceiver_tpu/ops/pallas/maxpool.py:100",
+                   tl["maxpool5x5_bwd"], k5["bwd_max_abs_err"], k5["per_step_bwd"],
+                   k5["bound_by"]),
+             max_pool2d_bwd_ms_for_scale=k5["per_step_bwd"]["max_pool2d_ms"]),
     ]}
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
     with open(os.path.join(ROOT, "chiprun_out", "chip_smoke.json"), "w") as f:

@@ -15,30 +15,49 @@
 // (S, B, F, C, H, W) and the target (B, C, H, W), both bf16 or both fp32, channel-planar;
 // every statistic is fp32; the output is (S, B, H, W) fp32.
 //
-// K2 returns d out / d preds for a cotangent (S, B, H, W) fp32, in the preds' dtype. The
-// frame-min routes it as `jnp.minimum` does (a tie splits it in halves down the chain) and
-// the clip passes 1 strictly inside [0, 1] and 1/2 on its ends, as `jnp.clip` does. With
-// P1, P2, P3 the cotangents of the window sums of x, x^2 and x*y at each stat pixel, a
-// PADDED position q receives WS(P1) + 2 x(q) WS(P2) + y(q) WS(P3), WS the sum over the
-// stat pixels whose window holds q. An image pixel (i, j) gathers this from every padded
-// position that holds a copy of it -- itself, and the reflect-ring copies where i or j is
-// 1 or H-2 (W-2) -- plus the cotangent of its own Charbonnier term. So the ring and
-// corner gradients that the TPU kernel left to XLA are exact sums here, with nothing
-// counted twice.
+// K1: one thread block per (s, b) and 8 x 32 pixel tile stages the target and every
+// frame's channels of the tile plus a 1-pixel reflect halo in shared memory as fp32 (the
+// target's statistics are computed once for all frames) and computes each pixel's 3x3 sums
+// from there. When asked, it also writes a routing code per (s, b, pixel): for each link
+// f = 1 .. F-1 of the chain best_f = min(best_{f-1}, rl_f), two bits saying whether rl_f
+// was greater than (0), less than (1) or equal to (2) best_{f-1}. Bound: bytes.
 //
-// Design: one thread block per (s, b) and 8 x 32 pixel tile. K1 stages the target and
-// every frame's channels of the tile plus a 1-pixel reflect halo in shared memory as fp32
-// (the target's statistics are computed once for all frames) and computes each pixel's
-// 3x3 sums from there. K2 stages a 2-pixel halo, computes the frame-min routing and the
-// stat cotangents on the tile's 10 x 34 stat pixels, and gathers them onto the image
-// pixels. Bound on this card: bytes -- each input read once and each output written once
-// at 3.35 TB/s; the fp32 arithmetic, some 40 operations a pixel, channel and frame, is below
-// the 67 TFLOP/s non-tensor rate at those bytes. The halo re-reads (1.33x in K1, 1.5x in
-// K2) and K2's recomputation of the statistics are what this first version pays above it.
+// K2 returns d out / d preds for a cotangent (S, B, H, W) fp32, in the preds' dtype. The
+// frame-min routes it as `jnp.minimum` does (a tie splits it in halves down the chain),
+// read from K1's routing code, so the backward routes exactly as the forward decided; the
+// clip passes 1 strictly inside [0, 1] and 1/2 on its ends, as `jnp.clip` does. With the
+// window statistics of a stat pixel p and the cotangents P1 = dL/dmu_x / 9,
+// P2 = 2 dL/dsigma_x / 9, P3 = dL/dsigma_xy / 9 of that window, a PADDED position q of
+// the window receives P1 + P2 (x_q - mu_x) + P3 (y_q - mu_y). An image pixel gathers this
+// from every padded position that holds a copy of it -- itself, and the reflect-ring copies
+// where i or j is 1 or H-2 (W-2), counted as a multiplicity of 1, 2 or 4 of the stat
+// pixel's term -- plus the cotangent of its own Charbonnier term. So the ring and corner
+// gradients that the TPU kernel left to XLA are exact sums here, with nothing counted twice.
+//
+// K2's design: one block per (s, b, frame) and 32 x 32 output tile, 256 threads.
+// - The frame's weight at each of the 34 x 34 stat pixels comes from the routing code and
+//   the cotangent; a block whose frame gets no weight anywhere writes zeros and stops.
+// - It stages the target and the frame's C planes over 36 x 36 pixels (halo 1.27x the
+//   tile) in the operand dtype, rows aligned on the tile's first column: 16-byte
+//   `cp.async` vectors wherever they lie in the image (rows reflect whole), element by
+//   element through the reflect only where a vector leaves it.
+// - One pass over the statistics per channel, only at stat pixels with weight: a thread
+//   walks down a column of stat pixels keeping three staged rows in registers; the window
+//   means come from three-column sums shared by the three windows that hold a row, and the
+//   second moments are taken around the window means, sigma_x = sum (x - mu_x)^2 / 9 and
+//   sigma_xy = sum (x - mu_x)(y - mu_y) / 9, which keeps flat (border-clamped) windows from
+//   cancelling. One reciprocal of den. P1, P2, P3, mu_x and mu_y go to shared memory.
+// - The gather: a thread owns four pixels of a column and reads the six stat rows around
+//   them once, each term taken around its own window's means (no x^2 against mu^2).
+// Bound on this card: operations (REPROJ_OPS_BWD in chip_smoke.py) against bytes, the
+// larger; the staging, the shared-memory traffic of the gather and the zero weights of the
+// frames that lost the min are what it pays above that.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
+
+#include "cp_async.cuh"
 
 namespace {
 
@@ -135,7 +154,7 @@ __device__ __forceinline__ float term(const Win& w, float mu_y, float sig_y, flo
 template <typename T>
 __global__ void __launch_bounds__(THREADS)
 reproj_fwd(const T* __restrict__ preds, const T* __restrict__ targ, float* __restrict__ out,
-           int B, int F, int C, int H, int W) {
+           uint16_t* __restrict__ code, int B, int F, int C, int H, int W) {
   extern __shared__ float smem[];
   constexpr int RH = TH + 2, RW = TW + 2, N = RH * RW;
   float* ys = smem;          // [C][N]
@@ -154,6 +173,7 @@ reproj_fwd(const T* __restrict__ preds, const T* __restrict__ targ, float* __res
   float mu_y[MAX_C], sig_y[MAX_C];
   for (int c = 0; c < C; ++c) target_stats(ys + c * N, ty, tx, RW, &mu_y[c], &sig_y[c]);
   float best = 0.f;
+  unsigned route = 0;
   for (int f = 0; f < F; ++f) {
     float acc = 0.f;
     for (int c = 0; c < C; ++c) {
@@ -163,208 +183,322 @@ reproj_fwd(const T* __restrict__ preds, const T* __restrict__ targ, float* __res
       acc += term(w, mu_y[c], sig_y[c], x[(ty + 1) * RW + tx + 1], y[(ty + 1) * RW + tx + 1]);
     }
     const float rl = acc * (1.f / C);
-    best = f == 0 ? rl : fminf(best, rl);
+    if (f == 0) {
+      best = rl;
+    } else {
+      route |= (rl < best ? 1u : (rl == best ? 2u : 0u)) << (2 * (f - 1));
+      best = fminf(best, rl);
+    }
   }
   out[(size_t)sb * plane + (size_t)i * W + j] = best;
+  if (code != nullptr) code[(size_t)sb * plane + (size_t)i * W + j] = (uint16_t)route;
 }
 
 // ----------------------------------------------------------------------------------------
 // K2: backward
 // ----------------------------------------------------------------------------------------
 
+constexpr int BT = 32;                   // output tile: BT x BT pixels
+constexpr int BTHREADS = 256;            // 32 columns x 8 groups of 4 rows
+constexpr int BMIN_BLOCKS = 4;           // blocks a SM: at most 64 registers a thread
+constexpr int SR = BT + 4;               // staged rows: i0-2 .. i0+BT+1
+constexpr int EW = BT + 2, NE = EW * EW;  // stat pixels: i0-1 .. i0+BT, j0-1 .. j0+BT
+constexpr int SEG = 5, NSEG = (EW + SEG - 1) / SEG;  // stat-pass column segments
+static_assert(EW * NSEG <= BTHREADS, "one stat-pass item a thread");
+
+// Staged row layout in T: image column j0 - A + k at index k, A = 16 bytes of T, so the
+// tile's first column starts a 16-byte vector; the pitch is 16-byte aligned.
 template <typename T>
-__global__ void __launch_bounds__(THREADS)
-reproj_bwd(const T* __restrict__ preds, const T* __restrict__ targ,
-           const float* __restrict__ cot, T* __restrict__ grad, int B, int F, int C, int H,
-           int W) {
-  extern __shared__ float smem[];
-  constexpr int RH = TH + 4, RW = TW + 4, N = RH * RW;  // pixels, 2-pixel halo
-  constexpr int EH = TH + 2, EW = TW + 2, NE = EH * EW;  // stat pixels, 1-pixel halo
-  float* ys = smem;                // [C][N]
-  float* xs = ys + C * N;          // [F][C][N]
-  float* wt = xs + F * C * N;      // [F][NE]: d out / d (per-frame loss) / C
-  float* pc = wt + F * NE;         // [C][4][NE]: P1, P2, P3, P_center of one frame
-  const int sb = blockIdx.z, b = sb % B;
-  const int i0 = blockIdx.y * TH, j0 = blockIdx.x * TW;
-  const size_t plane = (size_t)H * W;
+struct Staged {
+  static constexpr int A = 16 / sizeof(T);
+  static constexpr int PITCH = 2 * A + BT;
+  static constexpr int VECS = PITCH / A;  // 16-byte vectors a row
+};
 
-  stage(smem, targ + (size_t)b * C * plane, preds + (size_t)sb * F * C * plane, C, F, RH, RW,
-        i0 - 2, j0 - 2, H, W);
-  __syncthreads();
-
-  // Stat pixel e = (er, eq) of the ext region is image pixel (i0-1+er, j0-1+eq); its window
-  // starts at region position (er, eq), its center at (er+1, eq+1).
-  for (int e = threadIdx.x; e < NE; e += blockDim.x) {
-    const int er = e / EW, eq = e - er * EW;
-    const int pi = i0 - 1 + er, pj = j0 - 1 + eq;
-    if (pi < 0 || pi >= H || pj < 0 || pj >= W) {
-      for (int f = 0; f < F; ++f) wt[f * NE + e] = 0.f;
-      continue;
-    }
-    float mu_y[MAX_C], sig_y[MAX_C];
-    for (int c = 0; c < C; ++c) target_stats(ys + c * N, er, eq, RW, &mu_y[c], &sig_y[c]);
-    float rl[MAX_F];
-    for (int f = 0; f < F; ++f) {
-      float acc = 0.f;
-      for (int c = 0; c < C; ++c) {
-        const float* x = xs + (f * C + c) * N;
-        const float* y = ys + c * N;
-        const Win w = window(x, y, er, eq, RW);
-        acc += term(w, mu_y[c], sig_y[c], x[(er + 1) * RW + eq + 1], y[(er + 1) * RW + eq + 1]);
-      }
-      rl[f] = acc * (1.f / C);
-    }
-    // best_0 = rl_0, best_k = min(best_{k-1}, rl_k); route the cotangent back down it.
-    float best[MAX_F];
-    best[0] = rl[0];
-    for (int f = 1; f < F; ++f) best[f] = fminf(best[f - 1], rl[f]);
-    float a = cot[(size_t)sb * plane + (size_t)pi * W + pj];
-    for (int f = F - 1; f >= 1; --f) {
-      float wf = 0.f;
-      if (rl[f] < best[f - 1]) {
-        wf = a;
-        a = 0.f;
-      } else if (rl[f] == best[f - 1]) {
-        wf = 0.5f * a;
-        a = 0.5f * a;
-      }
-      wt[f * NE + e] = wf * (1.f / C);
-    }
-    wt[e] = a * (1.f / C);
+// d out / d rl_f / C at one pixel, from the routing code and the cotangent.
+__device__ __forceinline__ float frame_weight(unsigned code, float cot, int f, int F, float invC) {
+  float a = cot;
+  for (int k = F - 1; k >= 1; --k) {
+    const unsigned o = (code >> (2 * (k - 1))) & 3u;
+    const float wk = o == 1u ? a : (o == 2u ? 0.5f * a : 0.f);
+    if (o == 1u) a = 0.f;
+    if (o == 2u) a *= 0.5f;
+    if (k == f) return wk * invC;
   }
+  return a * invC;  // f == 0
+}
+
+// The gather of one channel onto pixels (4ty + k, tx) of the tile, k = 0..3: pixel (ti, tj)
+// is stat (ti+1, tj+1) and staged (ti+2, tj+A); its stat neighbours are rows ti..ti+2, cols
+// tj..tj+2. RING: the tile holds an image row or column 0, 1, n-2 or n-1, so reflect-ring
+// copies count a stat pixel's term twice (four times at the corners).
+template <typename T, bool RING>
+__device__ __forceinline__ void gather(const T* xsp, const T* ysp, const float* wt,
+                                       const float4* fq, const float* fmy, T* gout, int i0,
+                                       int j0, int H, int W) {
+  constexpr int A = Staged<T>::A, PITCH = Staged<T>::PITCH;
+  const int tx = threadIdx.x % BT, ty = threadIdx.x / BT;
+  const int j = j0 + tx;
+  float xq[4], yq[4], acc[4];
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    xq[k] = to_f32(xsp[(4 * ty + k + 2) * PITCH + tx + A]);
+    yq[k] = to_f32(ysp[(4 * ty + k + 2) * PITCH + tx + A]);
+    acc[k] = 0.f;
+  }
+  float mc[3];  // copies of column j in the windows of stat columns j-1, j, j+1
+#pragma unroll
+  for (int q = 0; q < 3; ++q) {
+    const int pj = j - 1 + q;
+    mc[q] = RING ? 1.f + (j == 1 && pj == 0) + (j == W - 2 && pj == W - 1) : 1.f;
+  }
+#pragma unroll
+  for (int s = 0; s < 6; ++s) {
+    const int er = 4 * ty + s, pi = i0 - 1 + er;
+    float4 fa[3];  // P1, P2, P3, mu_x
+    float amy[3];
+#pragma unroll
+    for (int q = 0; q < 3; ++q) {
+      fa[q] = fq[er * EW + tx + q];
+      amy[q] = fmy[er * EW + tx + q];
+    }
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      if (s < k || s > k + 2) continue;
+      const int i = i0 + 4 * ty + k;
+      const float mr = RING ? 1.f + (i == 1 && pi == 0) + (i == H - 2 && pi == H - 1) : 1.f;
+#pragma unroll
+      for (int q = 0; q < 3; ++q) {
+        const float t = fa[q].x + fa[q].y * (xq[k] - fa[q].w) + fa[q].z * (yq[k] - amy[q]);
+        acc[k] += RING ? mr * mc[q] * t : t;
+      }
+    }
+  }
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    const int i = i0 + 4 * ty + k;
+    if (i >= H || j >= W) continue;
+    const float wd = wt[(4 * ty + k + 1) * EW + tx + 1];
+    const float d = yq[k] - xq[k];
+    const float g = acc[k] - kL1W * wd * d * rsqrtf(d * d + kEps * kEps);
+    gout[(size_t)i * W + j] = from_f32<T>(g);
+  }
+}
+
+template <typename T>
+__global__ void __launch_bounds__(BTHREADS, BMIN_BLOCKS)
+reproj_bwd(const T* __restrict__ preds, const T* __restrict__ targ,
+           const float* __restrict__ cot, const uint16_t* __restrict__ code,
+           T* __restrict__ grad, int B, int F, int C, int H, int W) {
+  using S = Staged<T>;
+  constexpr int A = S::A, PITCH = S::PITCH, PLANE = SR * PITCH;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* st = reinterpret_cast<T*>(smem_raw);  // [2C][SR][PITCH]: target planes, then x planes
+  float* wt = reinterpret_cast<float*>(smem_raw + 2 * C * PLANE * sizeof(T));  // [NE]
+  float4* fq = reinterpret_cast<float4*>(wt + NE);  // [NE] per channel: P1, P2, P3, mu_x
+  float* fmy = reinterpret_cast<float*>(fq + NE);   // [NE] per channel: mu_y
+  static_assert(NE % 4 == 0, "16-byte aligned statistics");
+  const int sbf = blockIdx.z, f = sbf % F, sb = sbf / F, b = sb % B;
+  const int i0 = blockIdx.y * BT, j0 = blockIdx.x * BT;
+  const size_t plane = (size_t)H * W;
+  const float invC = 1.f / C;
+  const int tx = threadIdx.x % BT, ty = threadIdx.x / BT;
+  T* gout = grad + (size_t)sbf * C * plane;
+
+  // The frame's weight at the stat pixels; zero outside the image.
+  bool any = false;
+#pragma unroll
+  for (int it = 0; it < (NE + BTHREADS - 1) / BTHREADS; ++it) {
+    const int e = it * BTHREADS + threadIdx.x;
+    if (e >= NE) break;
+    const int pi = i0 - 1 + e / EW, pj = j0 - 1 + e % EW;
+    float w = 0.f;
+    if (pi >= 0 && pi < H && pj >= 0 && pj < W) {
+      const size_t at = (size_t)sb * plane + (size_t)pi * W + pj;
+      w = frame_weight(code[at], cot[at], f, F, invC);
+    }
+    wt[e] = w;
+    any |= w != 0.f;
+  }
+  if (!__syncthreads_or(any)) {  // the frame lost the min around the whole tile
+    for (int c = 0; c < C; ++c)
+      for (int k = 0; k < 4; ++k) {
+        const int i = i0 + 4 * ty + k, j = j0 + tx;
+        if (i < H && j < W) gout[c * plane + (size_t)i * W + j] = from_f32<T>(0.f);
+      }
+    return;
+  }
+
+  // Stage: staged (row rr, index k) = image (reflect(i0 - 2 + rr), reflect(j0 - A + k)).
+  // Rows map whole through the reflect, so every 16-byte vector of a row that lies in
+  // the image is one `cp.async`; the vectors that leave it (at the tiles of the first and
+  // last columns, or all when W is not a multiple of 16 bytes) go element by element.
+  const T* tsrc = targ + (size_t)b * C * plane;
+  const T* xsrc = preds + (size_t)sbf * C * plane;
+  const bool vec_rows = W % A == 0 && ((reinterpret_cast<uintptr_t>(preds) |
+                                        reinterpret_cast<uintptr_t>(targ)) & 15) == 0;
+  for (int e = threadIdx.x; e < 2 * C * SR * S::VECS; e += BTHREADS) {
+    const int v = e % S::VECS, rr = (e / S::VECS) % SR, pl = e / (S::VECS * SR);
+    const T* row = (pl < C ? tsrc + pl * plane : xsrc + (pl - C) * plane) +
+                   (size_t)reflect(i0 - 2 + rr, H) * W;
+    const int c0 = j0 - A + v * A;
+    T* dst = st + pl * PLANE + rr * PITCH + v * A;
+    if (vec_rows && c0 >= 0 && c0 + A <= W) {
+      cp_async16(dst, row + c0, true);
+    } else {
+#pragma unroll
+      for (int u = 0; u < A; ++u)
+        if (v * A + u >= A - 2 && v * A + u < A + BT + 2) dst[u] = row[reflect(c0 + u, W)];
+    }
+  }
+  cp_async_commit();
+  cp_async_wait<0>();
   __syncthreads();
 
-  const int tx = threadIdx.x % TW, ty = threadIdx.x / TW;
-  const int i = i0 + ty, j = j0 + tx;
-  // Padded positions holding a copy of pixel (i, j): rows i, and -1 or H when i is 1 or H-2.
-  int qr[3], qc[3], nqr = 0, nqc = 0;
-  qr[nqr++] = i;
-  if (i == 1) qr[nqr++] = -1;
-  if (i == H - 2) qr[nqr++] = H;
-  qc[nqc++] = j;
-  if (j == 1) qc[nqc++] = -1;
-  if (j == W - 2) qc[nqc++] = W;
-
-  for (int f = 0; f < F; ++f) {
-    for (int e = threadIdx.x; e < NE; e += blockDim.x) {
-      const int er = e / EW, eq = e - er * EW;
-      const float wd = wt[f * NE + e];
-      for (int c = 0; c < C; ++c) {
-        float p1 = 0.f, p2 = 0.f, p3 = 0.f, pxc = 0.f;
-        if (wd != 0.f) {
-          const float* x = xs + (f * C + c) * N;
-          const float* y = ys + c * N;
-          float mu_y, sig_y;
-          target_stats(y, er, eq, RW, &mu_y, &sig_y);
-          const Win w = window(x, y, er, eq, RW);
-          const float mu_x = w.sx * kNinth;
-          const float sig_x = w.sxx * kNinth - mu_x * mu_x;
-          const float sig_xy = w.sxy * kNinth - mu_x * mu_y;
-          const float A = 2.f * mu_x * mu_y + kC1, Bn = 2.f * sig_xy + kC2;
-          const float D = mu_x * mu_x + mu_y * mu_y + kC1, E = sig_x + sig_y + kC2;
-          const float num = A * Bn, den = D * E;
-          const float z = (1.f - num / den) * 0.5f;
-          const float kclip = (z > 0.f && z < 1.f) ? 1.f : ((z == 0.f || z == 1.f) ? 0.5f : 0.f);
-          const float dq = -0.5f * kSsimW * wd * kclip;  // d / d (num/den)
-          const float dnum = dq / den, dden = -dq * num / (den * den);
-          const float dA = dnum * Bn, dBn = dnum * A, dD = dden * E, dE = dden * D;
-          const float dsig_xy = 2.f * dBn, dsig_x = dE;
-          const float dmu_x = 2.f * mu_y * dA + 2.f * mu_x * dD - 2.f * mu_x * dsig_x - mu_y * dsig_xy;
-          p1 = dmu_x * kNinth;
-          p2 = dsig_x * kNinth;
-          p3 = dsig_xy * kNinth;
-          const float xc = x[(er + 1) * RW + eq + 1], yc = y[(er + 1) * RW + eq + 1];
-          const float d = yc - xc;
-          pxc = -kL1W * wd * d / sqrtf(d * d + kEps * kEps);
+  const bool ring_tile = i0 <= 1 || i0 + BT >= H - 1 || j0 <= 1 || j0 + BT >= W - 1;
+  for (int c = 0; c < C; ++c) {
+    const T* ysp = st + c * PLANE;
+    const T* xsp = st + (C + c) * PLANE;
+    // Stat pass: stat column eq, rows er0 .. er1-1. Stat pixel (er, eq) is image
+    // (i0-1+er, j0-1+eq); its window is staged rows er..er+2, indices eq+A-2 .. eq+A.
+    if (threadIdx.x < EW * NSEG) {
+      const int eq = threadIdx.x % EW, er0 = (threadIdx.x / EW) * SEG;
+      const int er1 = min(er0 + SEG, EW);
+      const T* xcol = xsp + eq + A - 2;
+      const T* ycol = ysp + eq + A - 2;
+      float xv[3][3], yv[3][3], sx[3], sy[3];
+      for (int a = 0; a < 2; ++a) {
+#pragma unroll
+        for (int q = 0; q < 3; ++q) {
+          xv[a][q] = to_f32(xcol[(er0 + a) * PITCH + q]);
+          yv[a][q] = to_f32(ycol[(er0 + a) * PITCH + q]);
         }
-        float* pcc = pc + c * 4 * NE;
-        pcc[e] = p1;
-        pcc[NE + e] = p2;
-        pcc[2 * NE + e] = p3;
-        pcc[3 * NE + e] = pxc;
+        sx[a] = xv[a][0] + xv[a][1] + xv[a][2];
+        sy[a] = yv[a][0] + yv[a][1] + yv[a][2];
+      }
+      for (int er = er0; er < er1; ++er) {
+#pragma unroll
+        for (int q = 0; q < 3; ++q) {
+          xv[2][q] = to_f32(xcol[(er + 2) * PITCH + q]);
+          yv[2][q] = to_f32(ycol[(er + 2) * PITCH + q]);
+        }
+        sx[2] = xv[2][0] + xv[2][1] + xv[2][2];
+        sy[2] = yv[2][0] + yv[2][1] + yv[2][2];
+        const int e = er * EW + eq;
+        const float wd = wt[e];
+        float p1 = 0.f, p2 = 0.f, p3 = 0.f, mx = 0.f, my = 0.f;
+        if (wd != 0.f) {
+          mx = (sx[0] + sx[1] + sx[2]) * kNinth;
+          my = (sy[0] + sy[1] + sy[2]) * kNinth;
+          float sxx = 0.f, syy = 0.f, sxy = 0.f;
+#pragma unroll
+          for (int a = 0; a < 3; ++a)
+#pragma unroll
+            for (int q = 0; q < 3; ++q) {
+              const float dx = xv[a][q] - mx, dy = yv[a][q] - my;
+              sxx += dx * dx;
+              syy += dy * dy;
+              sxy += dx * dy;
+            }
+          const float Am = 2.f * mx * my + kC1, Bn = 2.f * (sxy * kNinth) + kC2;
+          const float D = mx * mx + my * my + kC1, E = (sxx + syy) * kNinth + kC2;
+          const float num = Am * Bn, den = D * E;
+          // clip((1 - num/den) / 2): 1 strictly inside (0, 1), 1/2 on its ends (den > 0).
+          const float kclip = (num < den && num > -den) ? 1.f
+                              : ((num == den || num == -den) ? 0.5f : 0.f);
+          const float gq = -0.5f * kSsimW * wd * kclip;  // d / d (num/den)
+          if (gq != 0.f) {
+            const float inv = 1.f / den, ratio = num * inv;
+            const float gA = gq * Bn * inv, gB = gq * Am * inv, t = -gq * ratio * inv;
+            const float gD = t * E, gE = t * D;
+            p1 = (2.f * my * gA + 2.f * mx * gD) * kNinth;
+            p2 = 2.f * gE * kNinth;
+            p3 = 2.f * gB * kNinth;
+          }
+        }
+        fq[e] = make_float4(p1, p2, p3, mx);
+        fmy[e] = my;
+#pragma unroll
+        for (int q = 0; q < 3; ++q) {
+          xv[0][q] = xv[1][q];
+          xv[1][q] = xv[2][q];
+          yv[0][q] = yv[1][q];
+          yv[1][q] = yv[2][q];
+        }
+        sx[0] = sx[1];
+        sx[1] = sx[2];
+        sy[0] = sy[1];
+        sy[1] = sy[2];
       }
     }
     __syncthreads();
-    if (i < H && j < W) {
-      for (int c = 0; c < C; ++c) {
-        const float* pcc = pc + c * 4 * NE;
-        float u1 = 0.f, u2 = 0.f, u3 = 0.f;
-        for (int a = 0; a < nqr; ++a)
-          for (int bq = 0; bq < nqc; ++bq)
-            for (int dr = -1; dr <= 1; ++dr) {
-              const int pi = qr[a] + dr;
-              if (pi < 0 || pi >= H) continue;
-              for (int dc = -1; dc <= 1; ++dc) {
-                const int pj = qc[bq] + dc;
-                if (pj < 0 || pj >= W) continue;
-                const int e = (pi - i0 + 1) * EW + (pj - j0 + 1);
-                u1 += pcc[e];
-                u2 += pcc[NE + e];
-                u3 += pcc[2 * NE + e];
-              }
-            }
-        const int ec = (ty + 1) * EW + tx + 1;
-        const float xv = xs[(f * C + c) * N + (ty + 2) * RW + tx + 2];
-        const float yv = ys[c * N + (ty + 2) * RW + tx + 2];
-        const float g = pcc[3 * NE + ec] + u1 + 2.f * xv * u2 + yv * u3;
-        grad[(((size_t)sb * F + f) * C + c) * plane + (size_t)i * W + j] = from_f32<T>(g);
-      }
-    }
-    __syncthreads();  // the next frame overwrites pc
+
+    if (ring_tile)
+      gather<T, true>(xsp, ysp, wt, fq, fmy, gout + c * plane, i0, j0, H, W);
+    else
+      gather<T, false>(xsp, ysp, wt, fq, fmy, gout + c * plane, i0, j0, H, W);
+    __syncthreads();  // the next channel overwrites the statistics
   }
 }
 
 int smem_fwd(int F, int C) { return (C + F * C) * (TH + 2) * (TW + 2) * 4; }
-int smem_bwd(int F, int C) {
-  const int n = (TH + 4) * (TW + 4), ne = (TH + 2) * (TW + 2);
-  return ((C + F * C) * n + F * ne + C * 4 * ne) * 4;
+template <typename T>
+int smem_bwd(int C) {
+  return 2 * C * SR * Staged<T>::PITCH * (int)sizeof(T) + 6 * NE * 4;
 }
 
 template <typename T>
-int launch(const void* preds, const void* targ, const float* cot, void* out, int S, int B, int F,
-           int C, int H, int W, cudaStream_t s) {
-  const dim3 grid((W + TW - 1) / TW, (H + TH - 1) / TH, S * B);
+int launch(const void* preds, const void* targ, const float* cot, void* code, void* out, int S,
+           int B, int F, int C, int H, int W, cudaStream_t s) {
   if (cot == nullptr) {
+    const dim3 grid((W + TW - 1) / TW, (H + TH - 1) / TH, S * B);
     const int bytes = smem_fwd(F, C);
     cudaError_t err =
         cudaFuncSetAttribute(reproj_fwd<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
     if (err != cudaSuccess) return static_cast<int>(err);
-    reproj_fwd<T><<<grid, THREADS, bytes, s>>>(static_cast<const T*>(preds),
-                                               static_cast<const T*>(targ),
-                                               static_cast<float*>(out), B, F, C, H, W);
+    reproj_fwd<T><<<grid, THREADS, bytes, s>>>(
+        static_cast<const T*>(preds), static_cast<const T*>(targ), static_cast<float*>(out),
+        static_cast<uint16_t*>(code), B, F, C, H, W);
   } else {
-    const int bytes = smem_bwd(F, C);
+    const dim3 grid((W + BT - 1) / BT, (H + BT - 1) / BT, S * B * F);
+    const int bytes = smem_bwd<T>(C);
     cudaError_t err =
         cudaFuncSetAttribute(reproj_bwd<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
     if (err != cudaSuccess) return static_cast<int>(err);
-    reproj_bwd<T><<<grid, THREADS, bytes, s>>>(static_cast<const T*>(preds),
-                                               static_cast<const T*>(targ), cot,
-                                               static_cast<T*>(out), B, F, C, H, W);
+    reproj_bwd<T><<<grid, BTHREADS, bytes, s>>>(
+        static_cast<const T*>(preds), static_cast<const T*>(targ), cot,
+        static_cast<const uint16_t*>(code), static_cast<T*>(out), B, F, C, H, W);
   }
   return static_cast<int>(cudaGetLastError());
 }
 
-int dispatch(const void* preds, const void* targ, const float* cot, void* out, int S, int B,
-             int F, int C, int H, int W, int dtype, void* stream) {
+int dispatch(const void* preds, const void* targ, const float* cot, void* code, void* out, int S,
+             int B, int F, int C, int H, int W, int dtype, void* stream) {
   if (F < 1 || F > MAX_F || C < 1 || C > MAX_C || H < 2 || W < 2 || S * B < 1)
     return static_cast<int>(cudaErrorInvalidValue);
+  if (cot != nullptr && code == nullptr) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 1) return launch<__nv_bfloat16>(preds, targ, cot, out, S, B, F, C, H, W, s);
-  if (dtype == 0) return launch<float>(preds, targ, cot, out, S, B, F, C, H, W, s);
+  if (dtype == 1)
+    return launch<__nv_bfloat16>(preds, targ, cot, code, out, S, B, F, C, H, W, s);
+  if (dtype == 0) return launch<float>(preds, targ, cot, code, out, S, B, F, C, H, W, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace
 
 // preds (S, B, F, C, H, W) and targ (B, C, H, W), contiguous, both of `dtype`
-// (0 = float32, 1 = bfloat16); out (S, B, H, W) fp32. Returns the cudaError_t.
-extern "C" int jp_reproj_fwd(const void* preds, const void* targ, float* out, int S, int B, int F,
-                             int C, int H, int W, int dtype, void* stream) {
-  return dispatch(preds, targ, nullptr, out, S, B, F, C, H, W, dtype, stream);
+// (0 = float32, 1 = bfloat16); out (S, B, H, W) fp32; code (S, B, H, W) uint16, or null
+// for no routing code. Returns the cudaError_t.
+extern "C" int jp_reproj_fwd(const void* preds, const void* targ, float* out, void* code, int S,
+                             int B, int F, int C, int H, int W, int dtype, void* stream) {
+  return dispatch(preds, targ, nullptr, code, out, S, B, F, C, H, W, dtype, stream);
 }
 
-// As jp_reproj_fwd, with cot (S, B, H, W) fp32; grad (S, B, F, C, H, W) of `dtype`.
-extern "C" int jp_reproj_bwd(const void* preds, const void* targ, const float* cot, void* grad,
-                             int S, int B, int F, int C, int H, int W, int dtype, void* stream) {
-  return dispatch(preds, targ, cot, grad, S, B, F, C, H, W, dtype, stream);
+// As jp_reproj_fwd, with cot (S, B, H, W) fp32 and the forward's routing code;
+// grad (S, B, F, C, H, W) of `dtype`.
+extern "C" int jp_reproj_bwd(const void* preds, const void* targ, const float* cot,
+                             const void* code, void* grad, int S, int B, int F, int C, int H,
+                             int W, int dtype, void* stream) {
+  return dispatch(preds, targ, cot, const_cast<void*>(code), grad, S, B, F, C, H, W, dtype,
+                  stream);
 }

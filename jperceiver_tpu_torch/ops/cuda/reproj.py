@@ -5,7 +5,10 @@ and K2 (backward), their plain versions, and the differentiable
 Counterpart of `jperceiver_tpu/ops/pallas/reproj.py::reproj_min_pallas`
 (a `custom_vjp` over `_fwd_kernel` and `_bwd_kernel` with XLA-side ring
 fix-ups). The kernels are `csrc/reproj.cu`; see there for the function,
-the tie and clip rules of the backward, the design and the bound.
+the tie and clip rules of the backward, the design and the bound. K1 also
+writes, when the preds need a gradient, a routing code per pixel (two bits
+a link of the frame-min chain: greater, less or equal), which
+`_ReprojMin` saves for K2, so the backward routes as the forward decided.
 
 Contract: preds (S, B, F, C, H, W) and the target (B, C, H, W), both bf16
 or both fp32, channel-planar; fp32 statistics; the output (S, B, H, W)
@@ -70,52 +73,65 @@ def _check(preds, targ):
         raise ValueError("reproj_min: preds and targ are on different devices")
 
 
-def _launch(fn, counter, preds, targ, out, cot=None):
-    s, b, f, c, h, w = preds.shape
-    args = [preds.data_ptr(), targ.data_ptr()]
-    if cot is not None:
-        args.append(cot.data_ptr())
-    err = fn(*args, out.data_ptr(), s, b, f, c, h, w, _DTYPE_CODE[preds.dtype],
-             torch.cuda.current_stream(preds.device).cuda_stream)
-    _build.check(err, counter)
-    LAUNCHES[counter] += 1
-    return out
-
-
-def _fwd(preds, targ):
+def _fwd(preds, targ, route=False):
+    """K1 (the plain version for CPU tensors): the loss and, when `route`,
+    K1's routing code for K2 (None on the CPU)."""
     if not preds.is_cuda:
-        return reproj_min_plain(preds, targ)
-    s, b, _, _, h, w = preds.shape
+        return reproj_min_plain(preds, targ), None
+    preds, targ = preds.contiguous(), targ.contiguous()
+    s, b, f, c, h, w = preds.shape
     out = torch.empty((s, b, h, w), device=preds.device, dtype=torch.float32)
-    return _launch(_build.library().jp_reproj_fwd, "reproj_fwd",
-                   preds.contiguous(), targ.contiguous(), out)
+    # uint16 codes, held as int16 (the bits are what K2 reads).
+    code = torch.empty((s, b, h, w), device=preds.device, dtype=torch.int16) if route else None
+    err = _build.library().jp_reproj_fwd(
+        preds.data_ptr(), targ.data_ptr(), out.data_ptr(),
+        None if code is None else code.data_ptr(), s, b, f, c, h, w,
+        _DTYPE_CODE[preds.dtype], torch.cuda.current_stream(preds.device).cuda_stream)
+    _build.check(err, "reproj_fwd")
+    LAUNCHES["reproj_fwd"] += 1
+    return out, code
 
 
-def _bwd(preds, targ, cot):
+def _bwd(preds, targ, cot, code):
+    """K2 (the plain version for CPU tensors): the preds' gradient for the
+    cotangent, routed by K1's code."""
     if not preds.is_cuda:
         return _reproj_bwd_plain(preds, targ, cot)
+    if code is None or tuple(code.shape) != tuple(cot.shape):
+        raise ValueError("reproj_bwd: needs K1's routing code of the cotangent's shape")
+    preds, targ = preds.contiguous(), targ.contiguous()
+    cot = cot.float().contiguous()
+    s, b, f, c, h, w = preds.shape
     grad = torch.empty(preds.shape, device=preds.device, dtype=preds.dtype)
-    return _launch(_build.library().jp_reproj_bwd, "reproj_bwd",
-                   preds.contiguous(), targ.contiguous(), grad,
-                   cot=cot.float().contiguous())
+    err = _build.library().jp_reproj_bwd(
+        preds.data_ptr(), targ.data_ptr(), cot.data_ptr(), code.contiguous().data_ptr(),
+        grad.data_ptr(), s, b, f, c, h, w, _DTYPE_CODE[preds.dtype],
+        torch.cuda.current_stream(preds.device).cuda_stream)
+    _build.check(err, "reproj_bwd")
+    LAUNCHES["reproj_bwd"] += 1
+    return grad
 
 
 class _ReprojMin(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, preds, targ):
-        ctx.save_for_backward(preds, targ)
-        return _fwd(preds, targ)
+    def forward(ctx, preds, targ, route):
+        out, code = _fwd(preds, targ, route)
+        ctx.save_for_backward(preds, targ, code)
+        return out
 
     @staticmethod
     def backward(ctx, cot):
-        preds, targ = ctx.saved_tensors
-        dp = _bwd(preds, targ, cot) if ctx.needs_input_grad[0] else None
+        preds, targ, code = ctx.saved_tensors
+        dp = _bwd(preds, targ, cot, code) if ctx.needs_input_grad[0] else None
         dt = torch.zeros_like(targ) if ctx.needs_input_grad[1] else None
-        return dp, dt
+        return dp, dt, None
 
 
 def reproj_min(preds: torch.Tensor, targ: torch.Tensor) -> torch.Tensor:
     """min over frames of the reprojection loss: preds (S, B, F, C, H, W),
     targ (B, C, H, W) -> (S, B, H, W) fp32, differentiable in preds."""
     _check(preds, targ)
-    return _ReprojMin.apply(preds, targ)
+    # K1 writes the routing code only where the preds will get a gradient:
+    # the automask identity pairs run under no_grad.
+    route = preds.requires_grad and torch.is_grad_enabled()
+    return _ReprojMin.apply(preds, targ, route)

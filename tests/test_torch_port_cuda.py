@@ -185,22 +185,25 @@ def test_conv3x3_wgrad_splits_and_repeats_bit_for_bit(cuda, dtype):
     assert (a - ref).abs().max().item() <= 1e-4 * ref.abs().max().item()
 
 
+@pytest.mark.parametrize("f", [2, 3])
 @pytest.mark.parametrize("dtype,b", [(torch.float32, 1), (torch.bfloat16, 1),
                                      (torch.bfloat16, 2), (torch.float32, 3)])
 @pytest.mark.parametrize("h,w", [(37, 45), (2, 3)])
-def test_reproj_kernels(cuda, dtype, b, h, w):
-    """K1 and K2 against their plain versions, with exact frame ties (frame 1
-    copies frame 0 on the left half) and sizes that cut tiles and reach the
-    reflect ring and corners of every tile. Pixel values are 8-bit levels
-    k/256, so the SSIM window sums are exact in both versions (on arbitrary
-    fp32 values, low-variance windows make the gradient depend on their
-    order)."""
+def test_reproj_kernels(cuda, dtype, b, h, w, f):
+    """K1 and K2 (routed by K1's code) against their plain versions, with
+    exact frame ties (frame 1 copies frame 0 on the left half, frame 2 on
+    the top half) and sizes that cut tiles and reach the reflect ring and
+    corners of every tile. Pixel values are 8-bit levels k/256, so the SSIM
+    window sums are exact in both versions (on arbitrary fp32 values,
+    low-variance windows make the gradient depend on their order)."""
     from jperceiver_tpu_torch.ops.cuda import reproj_min, reproj_min_plain
     from jperceiver_tpu_torch.ops.cuda.reproj import _reproj_bwd_plain
 
-    g = torch.Generator(device=cuda).manual_seed(b + h)
-    preds = torch.round(256 * torch.rand(2, b, 2, 3, h, w, device=cuda, generator=g)) / 256
+    g = torch.Generator(device=cuda).manual_seed(b + h + 100 * (f - 2))
+    preds = torch.round(256 * torch.rand(2, b, f, 3, h, w, device=cuda, generator=g)) / 256
     preds[:, :, 1, ..., : w // 2] = preds[:, :, 0, ..., : w // 2]
+    if f > 2:
+        preds[:, :, 2, :, : h // 2] = preds[:, :, 0, :, : h // 2]
     preds = preds.to(dtype).requires_grad_()
     targ = (torch.round(256 * torch.rand(b, 3, h, w, device=cuda, generator=g)) / 256).to(dtype)
     cot = torch.randn(2, b, h, w, device=cuda, generator=g)
@@ -217,9 +220,65 @@ def test_reproj_kernels(cuda, dtype, b, h, w):
     assert (preds.grad.float() - dref.float()).abs().max().item() <= tol
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_reproj_tie_halves_the_cotangent(cuda, dtype):
+    """Two identical frames: K1's code marks every pixel a tie, and K2 gives
+    each frame exactly half of what the single frame gets; the forward
+    without a gradient writes no code and K2 is not launched."""
+    from jperceiver_tpu_torch.ops.cuda import reproj_min
+    from jperceiver_tpu_torch.ops.cuda.reproj import _fwd
+
+    g = torch.Generator(device=cuda).manual_seed(11)
+    one = torch.rand(2, 1, 1, 3, 40, 70, device=cuda, generator=g).to(dtype)
+    targ = torch.rand(1, 3, 40, 70, device=cuda, generator=g).to(dtype)
+    cot = torch.randn(2, 1, 40, 70, device=cuda, generator=g)
+    two = one.expand(2, 1, 2, 3, 40, 70).contiguous().requires_grad_()
+    one = one.clone().requires_grad_()
+    reproj_min(two, targ).backward(cot)
+    reproj_min(one, targ).backward(cot)
+    _, code = _fwd(two.detach(), targ, route=True)
+    assert torch.equal(code, torch.full_like(code, 2))
+    assert torch.equal(two.grad[:, :, 0], two.grad[:, :, 1])
+    assert torch.equal(2 * two.grad[:, :, 0].float(), one.grad[:, :, 0].float())
+    reset_launch_counts()
+    with torch.no_grad():
+        _, none = _fwd(two.detach(), targ, route=False)
+        reproj_min(two, targ)
+    assert none is None and launch_counts()["reproj_bwd"] == 0
+
+
+@pytest.mark.parametrize("cot_channels_last", [True, False])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("c", [256, 13, 4])
+def test_maxpool5x5_backward_kernel_bit_exact(cuda, dtype, c, cot_channels_last):
+    """`maxpool5x5_bwd` against the plain backward, bit for bit, on inputs
+    with ties; through autograd one launch a direction, and a cotangent that
+    is not channels-last copied once and counted."""
+    from jperceiver_tpu_torch.ops.cuda import (maxpool5x5, maxpool5x5_bwd,
+                                               maxpool5x5_bwd_plain)
+
+    g = torch.Generator(device=cuda).manual_seed(c + 1)
+    x = torch.relu(torch.round(4 * torch.randn(2, c, 37, 70, device=cuda,
+                                               generator=g)) / 4).to(dtype)
+    x = x.contiguous(memory_format=torch.channels_last).requires_grad_()
+    cot = torch.randn(2, c, 37, 70, device=cuda, generator=g).to(dtype)
+    if cot_channels_last:
+        cot = cot.contiguous(memory_format=torch.channels_last)
+    reset_launch_counts()
+    y = maxpool5x5(x)
+    y.backward(cot)
+    counts = launch_counts()
+    assert (counts["maxpool5x5"], counts["maxpool5x5_bwd"]) == (1, 1)
+    assert counts["maxpool5x5_bwd_cot_copy"] == (0 if cot_channels_last else 1)
+    ref = maxpool5x5_bwd_plain(x.detach(), y.detach(), cot)
+    torch.cuda.synchronize()
+    assert x.grad.dtype == dtype and torch.equal(x.grad, ref)
+    assert torch.equal(maxpool5x5_bwd(x.detach(), y.detach(), cot), ref)
+
+
 def test_kernel_routed_blocks_reach_every_parameter(cuda):
     """A backward through a K3-routed `Conv3x3` and a K5-routed `CRPBlock`
-    reaches every parameter and the input, as the routing through cuDNN and
+    (the pool's backward kernel too) reaches every parameter and the input, as the routing through cuDNN and
     the plain pool does. Compared in the L2 norm of each gradient, to 1e-2:
     where two values of a pool window lie within the rounding of K3 against
     cuDNN, the max changes place between the routings, which moves a few
@@ -240,7 +299,8 @@ def test_kernel_routed_blocks_reach_every_parameter(cuda):
         net(x).square().mean().backward()
         counts = launch_counts()
         assert (counts["conv3x3"], counts["conv3x3_dgrad"], counts["conv3x3_wgrad"],
-                counts["maxpool5x5"]) == ((1, 1, 1, 4) if on else (0, 0, 0, 0))
+                counts["maxpool5x5"], counts["maxpool5x5_bwd"]) == (
+                    (1, 1, 1, 4, 4) if on else (0, 0, 0, 0, 0))
         grads[on] = [p.grad.clone() for p in net.parameters()] + [x.grad.clone()]
     for i, (a, ref) in enumerate(zip(grads[True], grads[False])):
         assert torch.isfinite(a).all() and ref.norm() > 0
