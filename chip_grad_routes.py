@@ -83,24 +83,32 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
 
     pools, caps = [], {}
-    mp5, mp3, rmin = common.maxpool5x5, resnet.maxpool3x3s2, multitask.reproj_min
+    mp5, mp3 = common.maxpool5x5, resnet.maxpool3x3s2
+    rmin, rmin_am = multitask.reproj_min, multitask.reproj_min_automask
 
     def rec5(x, use_kernel=True):
         pools.append(("p5", x.detach().clone()))
         return mp5(x, use_kernel)
 
-    def rec3(x):
+    def rec3(x, use_kernel=True):
         pools.append(("p3", x.detach().clone()))
-        return mp3(x)
+        return mp3(x, use_kernel)
 
-    def rec_reproj(preds, targ):
-        out = rmin(preds, targ)
+    def capture(preds, targ, out):
         if preds.requires_grad and "preds" not in caps:
             caps.update(preds=preds.detach().clone(), targ=targ.detach().clone())
             out.register_hook(lambda g: caps.__setitem__("cot", g.detach().clone()))
         return out
 
-    common.maxpool5x5, resnet.maxpool3x3s2, multitask.reproj_min = rec5, rec3, rec_reproj
+    def rec_reproj(preds, targ):
+        return capture(preds, targ, rmin(preds, targ))
+
+    def rec_reproj_am(preds, ident, targ):
+        out, ident_l = rmin_am(preds, ident, targ)
+        return capture(preds, targ, out), ident_l
+
+    common.maxpool5x5, resnet.maxpool3x3s2 = rec5, rec3
+    multitask.reproj_min, multitask.reproj_min_automask = rec_reproj, rec_reproj_am
 
     batch = batch_to(synthetic_batch(1, cs.HW, cs.HW, cs.OCC, seed=0), "cuda")
     model32 = cs.build_model(torch, torch.float32, "road")
@@ -164,7 +172,8 @@ def main() -> int:
 
     # K2 and its plain version on the step's own reprojection operands.
     preds, targ, cot = caps["preds"], caps["targ"], caps["cot"]
-    d, dref = rp._bwd(preds, targ, cot), rp._reproj_bwd_plain(preds, targ, cot)
+    _, code, _ = rp._fwd(preds, targ, route=True)
+    d, dref = rp._bwd(preds, targ, cot, code), rp._reproj_bwd_plain(preds, targ, cot)
     k2 = cs._k2_f64_witness(torch, preds, targ, cot, d, dref)
     k2["shape"], k2["dtype"] = list(preds.shape), str(preds.dtype)
 

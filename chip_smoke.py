@@ -16,7 +16,8 @@ Phases, each of which raises on failure:
      versions, bit for bit, at the four CRP shapes with ties, bf16 and fp32,
      timed beside F.max_pool2d and (for scale only: it routes a tie to one
      input) F.max_pool2d's backward; the plain backward's device operations
-     counted in a profiler trace;
+     counted in a profiler trace; the same for the stem pools' backward
+     kernel (maxpool3x3s2_bwd) at the step's four pools and at odd sizes;
   4. the eval step at 1024^2, occ 256, both BEV branches, with pose, random
      weights from a seed: fp32 with the kernels on against off (cuDNN and
      the plain pool, TF32 off), bf16 finite and timed both ways, kernel
@@ -25,11 +26,12 @@ Phases, each of which raises on failure:
      kernel launches counted and its rotations checked orthonormal;
   6. K1/K2 (reprojection loss forward/backward; K2 routed by K1's code)
      against their plain versions at the training step's shapes, bf16 and
-     fp32, B=2 bf16 and F=3, with exact frame ties, timed beside the plain
-     versions and the ATen path (reprojection_loss + amin, forward and
-     autograd backward); in fp32 also on arbitrary pixels and on
-     grid_sample outputs, with K2 and its plain version both held to the
-     float64 autograd gradient (and their ratio logged);
+     fp32, B=2 bf16 and F=3, with exact frame ties, K1 fused over the warped
+     stack and the automask identity frames (both outputs checked), timed
+     beside the plain versions and the ATen path (reprojection_loss + amin,
+     forward and autograd backward); in fp32 also on arbitrary pixels and on
+     grid_sample outputs, with K1, K2 and their plain versions held to the
+     float64 forward and autograd gradient (and their ratios logged);
   7. K3 as the data-grad (pad 2 and 1) and K4 (weight-grad) against their
      plain versions at every K3 site shape of the step, bf16 and fp32,
      timed beside cuDNN's conv2d_input / conv2d_weight, with each site's
@@ -41,9 +43,9 @@ Phases, each of which raises on failure:
      change of the input sets each gradient's bound), bf16 for 20 steps on
      one batch (finite, falling loss, BatchNorm statistics moving),
      frames/s with the kernels on and off in turns, the kernel launches of
-     one step from the counters and a profiler trace (the pools' backward
-     kernel 16 times, no cotangent copied), its device operations, busy
-     time, idle share and peak memory.
+     one step from the counters and a profiler trace (K1 once, the CRP
+     pools' backward kernel 16 times and the stem pools' 4, no cotangent
+     copied), its device operations, busy time, idle share and peak memory.
 
 Prints the card line, a JSON line describing every kernel, and last the
 device line. Full results go to chiprun_out/chip_smoke.json. Exits non-zero
@@ -72,6 +74,7 @@ K3_SRC = "jperceiver_tpu_torch/ops/cuda/csrc/conv3x3.cu"
 K5_SRC = "jperceiver_tpu_torch/ops/cuda/csrc/maxpool5x5.cu"
 K4_SRC = "jperceiver_tpu_torch/ops/cuda/csrc/conv3x3_wgrad.cu"
 K12_SRC = "jperceiver_tpu_torch/ops/cuda/csrc/reproj.cu"
+K3S2_SRC = "jperceiver_tpu_torch/ops/cuda/csrc/maxpool3x3s2.cu"
 # The training step of bench.py:124-137, at the flagship size.
 TRAIN_CFG = dict(
     type="static", split="odometry", frame_ids=[0, -1, 1], scales=[0, 1, 2, 3],
@@ -300,6 +303,71 @@ def phase_k5(torch) -> dict:
             "per_step_bwd": per_bwd, "bound_by": "bytes",
             "plain_bwd_device_ops": next(r["plain_bwd_device_ops"] for r in rows
                                          if "plain_bwd_device_ops" in r)}
+
+
+def phase_stem_pool(torch) -> dict:
+    """`maxpool3x3s2_bwd` (the stem pools' equality-mask backward) against
+    its plain version, bit for bit, at the step's four pools (the depth and
+    layout encoders at 512^2 x 64, the pose encoder twice at 96 x 320 x 64)
+    in bf16 (timed) and fp32, and at 17 x 23 with 64 and 13 channels."""
+    from jperceiver_tpu_torch.ops.cuda import (maxpool3x3s2, maxpool3x3s2_bwd,
+                                               maxpool3x3s2_bwd_plain)
+
+    aten = torch.ops.aten
+    g = torch.Generator(device="cuda").manual_seed(5)
+    # (channels, h, w, dtype, pools a step)
+    cases = [(64, 512, 512, torch.bfloat16, 2), (64, 96, 320, torch.bfloat16, 2),
+             (64, 512, 512, torch.float32, 0), (64, 96, 320, torch.float32, 0),
+             (64, 17, 23, torch.bfloat16, 0), (13, 17, 23, torch.bfloat16, 0),
+             (13, 17, 23, torch.float32, 0)]
+    rows, tot = [], Counter()
+    for c, h, w, dtype, per_step in cases:
+        # Quarter steps through a ReLU: zero plateaus and repeated values.
+        x = torch.relu(torch.round(4 * torch.randn(1, c, h, w, device="cuda", generator=g)) / 4)
+        x = x.to(dtype).contiguous(memory_format=torch.channels_last)
+        y = maxpool3x3s2(x)
+        cot = torch.randn(y.shape, device="cuda", generator=g).to(dtype)
+        cot = cot.contiguous(memory_format=torch.channels_last)
+        dx = maxpool3x3s2_bwd(x, y, cot)
+        dref = maxpool3x3s2_bwd_plain(x, y, cot)
+        torch.cuda.synchronize()
+        row = {"c": c, "h": h, "w": w, "dtype": str(dtype),
+               "bit_exact": bool(torch.equal(dx, dref)),
+               "max_abs_err": (dx.float() - dref.float()).abs().max().item(),
+               "bwd_nonzero": int((dref != 0).sum().item()), "outputs": y.numel()}
+        if not row["bit_exact"]:
+            raise AssertionError(f"maxpool3x3s2_bwd differs from its plain version: {row}")
+        if per_step:
+            n, m = x.numel(), y.numel()
+            # x and dx, y and g, each once; about 7 operations an input
+            # (2.25 windows on average, a compare, a select and an add each).
+            bnd, by = bound_ms(2 * (n + m) * x.element_size(), 7.0 * n, PEAK_FP32)
+            _, idx = aten.max_pool2d_with_indices(x, [3, 3], [2, 2], [1, 1])
+            row.update(
+                pools_per_step=per_step, bound_ms=bnd, bound_by=by,
+                ms=time_ms(torch, lambda: maxpool3x3s2_bwd(x, y, cot)),
+                plain_ms=time_ms(torch, lambda: maxpool3x3s2_bwd_plain(x, y, cot)),
+                # A different function (one input a window gets the
+                # cotangent), timed for scale only.
+                max_pool2d_bwd_ms=time_ms(torch, lambda: aten.max_pool2d_with_indices_backward(
+                    cot, x, [3, 3], [2, 2], [1, 1], [1, 1], False, idx)))
+            for k in ("ms", "plain_ms", "bound_ms", "max_pool2d_bwd_ms"):
+                tot[k] += per_step * row[k]
+            if h == 512:
+                from torch.profiler import ProfilerActivity, profile
+
+                with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                    maxpool3x3s2_bwd_plain(x, y, cot)
+                    torch.cuda.synchronize()
+                row["plain_device_ops"] = sum(
+                    1 for e in prof.events() if e.device_type.name == "CUDA")
+        rows.append(row)
+        log(f"stem pool backward {row}")
+    per_step = dict(tot, library_ms=None)  # no PyTorch call routes a tie to every maximum
+    return {"rows": rows, "max_abs_err": max(r["max_abs_err"] for r in rows),
+            "per_step": per_step, "bound_by": "bytes",
+            "plain_device_ops": next(r["plain_device_ops"] for r in rows
+                                     if "plain_device_ops" in r)}
 
 
 def build_model(torch, dtype, branches="both"):
@@ -578,6 +646,25 @@ def _k2_f64_witness(torch, preds, targ, cot, d, dref) -> dict:
     return out
 
 
+def _k1_f64_witness(torch, preds, ident, targ, out, ident_l, ref, ref_ident) -> dict:
+    """Largest distances of K1's two outputs and of its plain version's to
+    the float64 forward at the same fp32 operands."""
+    from jperceiver_tpu_torch.ops.cuda import reproj_min_plain
+
+    t64 = targ.double()
+    w64 = reproj_min_plain(preds.double(), t64)
+    i64 = reproj_min_plain(ident.double()[:, :, None], t64)
+    res = {"k1_warp_err_f64": (out.double() - w64).abs().max().item(),
+           "k1_plain_warp_err_f64": (ref.double() - w64).abs().max().item(),
+           "k1_ident_err_f64": (ident_l.double() - i64).abs().max().item(),
+           "k1_plain_ident_err_f64": (ref_ident.double() - i64).abs().max().item()}
+    res["k1_err_f64"] = max(res["k1_warp_err_f64"], res["k1_ident_err_f64"])
+    res["k1_plain_err_f64"] = max(res["k1_plain_warp_err_f64"], res["k1_plain_ident_err_f64"])
+    res["k1_over_plain_max"] = res["k1_err_f64"] / res["k1_plain_err_f64"]
+    del w64, i64
+    return res
+
+
 def phase_reproj(torch) -> dict:
     from jperceiver_tpu_torch.ops.cuda.reproj import (_bwd, _fwd, _reproj_bwd_plain,
                                                       reproj_min_plain)
@@ -586,112 +673,136 @@ def phase_reproj(torch) -> dict:
     F = torch.nn.functional
     g = torch.Generator(device="cuda").manual_seed(3)
     bf16, f32 = torch.bfloat16, torch.float32
-    # (shape, dtype, operands, role in one training step): the warped stack
-    # and the automask identity pairs at B=1 in bf16 (the flagship's
-    # operands), B=2 in bf16, three frames in bf16 and fp32, and in fp32 the
-    # warped stack on 8-bit levels, on arbitrary fp32 pixels and on
-    # grid_sample outputs. On 8-bit levels the window sums are exact in both
-    # versions; on the other fp32 operands both versions round them, and
-    # each is held to the float64 gradient as well as to the other.
-    cases = [((4, 1, 2, 3, HW, HW), bf16, "levels", "warped"),
-             ((2, 1, 1, 3, HW, HW), bf16, "levels", "identity"),
-             ((4, 2, 2, 3, HW, HW), bf16, "levels", None),
-             ((4, 1, 3, 3, HW, HW), bf16, "levels", None),
-             ((4, 1, 3, 3, HW, HW), f32, "levels", None),
-             ((4, 1, 2, 3, HW, HW), f32, "levels", None),
-             ((4, 1, 2, 3, HW, HW), f32, "arbitrary", None),
-             ((4, 1, 2, 3, HW, HW), f32, "grid_sample", None)]
-    rows, tot, f64_ratios = [], Counter(), {}
+    # (shape of the warped stack, dtype, operands, timed): every case runs
+    # the fused K1 -- the warped stack and F identity frames against one
+    # target, in one launch -- and K2 on its routing code. The flagship's
+    # operands (B=1, bf16) are timed; B=2 in bf16, three frames in bf16 and
+    # fp32, and in fp32 8-bit levels, arbitrary fp32 pixels and grid_sample
+    # outputs. On 8-bit levels the window sums are exact in both versions;
+    # on the other fp32 operands both versions round them, and each is held
+    # to float64 as well as to the other.
+    cases = [((4, 1, 2, 3, HW, HW), bf16, "levels", True),
+             ((4, 2, 2, 3, HW, HW), bf16, "levels", False),
+             ((4, 1, 3, 3, HW, HW), bf16, "levels", False),
+             ((4, 1, 3, 3, HW, HW), f32, "levels", False),
+             ((4, 1, 2, 3, HW, HW), f32, "levels", False),
+             ((4, 1, 2, 3, HW, HW), f32, "arbitrary", False),
+             ((4, 1, 2, 3, HW, HW), f32, "grid_sample", False)]
+    rows, tot, f64_ratios, k1_f64 = [], Counter(), {}, {}
     err_f = err_b = 0.0
-    for shape, dtype, operands, role in cases:
+    for shape, dtype, operands, timed in cases:
         s_, b_, f_ = shape[:3]
+        ishape = (f_, b_, 3, HW, HW)
         if operands == "grid_sample":
             preds = _warped_preds(torch, g, shape)
+            ident = torch.rand(ishape, device="cuda", generator=g)
             targ = torch.rand((b_, 3, HW, HW), device="cuda", generator=g)
+        elif operands == "levels":
+            preds = _tie_preds(torch, g, shape, dtype)
+            ident = _levels(torch, g, ishape).to(dtype)
+            targ = _levels(torch, g, (b_, 3, HW, HW)).to(dtype)
         else:
-            preds = _tie_preds(torch, g, shape, dtype, levels=operands == "levels")
-            targ = (_levels(torch, g, (b_, 3, HW, HW)) if operands == "levels"
-                    else torch.rand((b_, 3, HW, HW), device="cuda", generator=g)).to(dtype)
+            preds = _tie_preds(torch, g, shape, dtype, levels=False)
+            ident = torch.rand(ishape, device="cuda", generator=g)
+            targ = torch.rand((b_, 3, HW, HW), device="cuda", generator=g)
         cot = torch.randn((s_, b_, HW, HW), device="cuda", generator=g)
-        (out, code), ref = _fwd(preds, targ, route=f_ > 1), reproj_min_plain(preds, targ)
+        out, code, ident_l = _fwd(preds, targ, True, ident)
+        ref, ref_ident = reproj_min_plain(preds, targ), reproj_min_plain(ident[:, :, None], targ)
         torch.cuda.synchronize()
-        ef = (out - ref).abs().max().item()
+        ef = max((out - ref).abs().max().item(), (ident_l - ref_ident).abs().max().item())
         # Both sum the same fp32 statistics in another order; values are O(1).
-        row = {"shape": list(shape), "dtype": str(dtype), "operands": operands, "role": role,
-               "fwd_max_abs_err": ef, "fwd_tol": 2e-5}
+        row = {"shape": list(shape), "ident_shape": list(ishape), "dtype": str(dtype),
+               "operands": operands, "fwd_max_abs_err": ef, "fwd_tol": 2e-5}
         if not ef <= 2e-5:
             raise AssertionError(f"K1 disagrees with its plain version: {row}")
         err_f = max(err_f, ef)
-        if f_ > 1:
-            d, dref = _bwd(preds, targ, cot, code), _reproj_bwd_plain(preds, targ, cot)
-            # A frame-min decided by less than the two versions' rounding may
-            # route a pixel's cotangent to the other frame; the gradient of a
-            # pixel reads the routing within 2 pixels of it. Exact ties (the
-            # copied halves) are ties in both and stay in the comparison.
-            rl = reprojection_loss(preds.float(), targ.float()[:, None])[:, :, :, 0]
-            amb, ties = _near_ties(torch, rl)
-            amb = amb.float().reshape(s_ * b_, 1, HW, HW)
-            keep = (F.max_pool2d(amb, 5, 1, 2) == 0).reshape(s_, b_, 1, 1, HW, HW)
-            diff = ((d.float() - dref.float()).abs() * keep).max().item()
-            scale = dref.float().abs().max().item()
-            tol = (1e-4 if dtype == f32 else 1e-2) * scale
-            row.update(bwd_max_abs_err=diff, bwd_tol=tol, exact_tie_pixels=ties,
-                       near_tie_pixels_masked=int(amb.sum().item()),
-                       pixels_masked=int((~keep).sum().item()))
-            del rl, amb, keep
-            if dtype == f32:
-                # K2 no farther from float64 than its plain version: its
-                # largest distance within 2x the plain version's, its RMS
-                # distance within 1.25x.
-                row.update(_k2_f64_witness(torch, preds, targ, cot, d, dref))
-                f64_ratios[f"{operands}, F={f_}"] = {
-                    k: row[k] for k in ("k2_over_plain_max", "k2_over_plain_rms")}
-                if not (row["k2_err_f64"] <= 2 * row["plain_err_f64"]
-                        and row["k2_rms_f64"] <= 1.25 * row["plain_rms_f64"]):
-                    raise AssertionError(f"K2 farther from float64 than its plain version: {row}")
-            if operands == "levels" and not diff <= tol:
-                raise AssertionError(f"K2 disagrees with its plain version: {row}")
-            err_b = max(err_b, diff) if operands == "levels" else err_b
-            del d, dref
-        if role is not None:
-            n_in = preds.numel() * preds.element_size() + targ.numel() * targ.element_size()
-            n_pix = preds.numel()  # pixels x channels x frames x scales
-            bnd, by = bound_ms(n_in + 4 * s_ * b_ * HW * HW, REPROJ_OPS_FWD * n_pix, PEAK_FP32)
+        if dtype == f32 and operands != "levels":
+            # K1 no farther from the float64 forward than 2x its plain version.
+            row.update(_k1_f64_witness(torch, preds, ident, targ, out, ident_l, ref, ref_ident))
+            k1_f64[operands] = {k: row[k] for k in ("k1_err_f64", "k1_plain_err_f64",
+                                                    "k1_over_plain_max")}
+            if not row["k1_err_f64"] <= 2 * row["k1_plain_err_f64"]:
+                raise AssertionError(f"K1 farther from float64 than its plain version: {row}")
+        d, dref = _bwd(preds, targ, cot, code), _reproj_bwd_plain(preds, targ, cot)
+        # A frame-min decided by less than the two versions' rounding may
+        # route a pixel's cotangent to the other frame; the gradient of a
+        # pixel reads the routing within 2 pixels of it. Exact ties (the
+        # copied halves) are ties in both and stay in the comparison.
+        rl = reprojection_loss(preds.float(), targ.float()[:, None])[:, :, :, 0]
+        amb, ties = _near_ties(torch, rl)
+        amb = amb.float().reshape(s_ * b_, 1, HW, HW)
+        keep = (F.max_pool2d(amb, 5, 1, 2) == 0).reshape(s_, b_, 1, 1, HW, HW)
+        diff = ((d.float() - dref.float()).abs() * keep).max().item()
+        scale = dref.float().abs().max().item()
+        tol = (1e-4 if dtype == f32 else 1e-2) * scale
+        row.update(bwd_max_abs_err=diff, bwd_tol=tol, exact_tie_pixels=ties,
+                   near_tie_pixels_masked=int(amb.sum().item()),
+                   pixels_masked=int((~keep).sum().item()))
+        del rl, amb, keep
+        if dtype == f32:
+            # K2 no farther from float64 than its plain version: its largest
+            # distance within 2x the plain version's, its RMS distance
+            # within 1.25x.
+            row.update(_k2_f64_witness(torch, preds, targ, cot, d, dref))
+            f64_ratios[f"{operands}, F={f_}"] = {
+                k: row[k] for k in ("k2_over_plain_max", "k2_over_plain_rms")}
+            if not (row["k2_err_f64"] <= 2 * row["plain_err_f64"]
+                    and row["k2_rms_f64"] <= 1.25 * row["plain_rms_f64"]):
+                raise AssertionError(f"K2 farther from float64 than its plain version: {row}")
+        if operands == "levels" and not diff <= tol:
+            raise AssertionError(f"K2 disagrees with its plain version: {row}")
+        err_b = max(err_b, diff) if operands == "levels" else err_b
+        del d, dref
+        if timed:
+            # One step's K1: the warped stack with its routing code and the
+            # identity frames, one launch.
+            n_in = sum(t.numel() * t.element_size() for t in (preds, ident, targ))
+            n_out = (4 + 2) * s_ * b_ * HW * HW + 4 * f_ * b_ * HW * HW
+            bnd, by = bound_ms(n_in + n_out, REPROJ_OPS_FWD * (preds.numel() + ident.numel()),
+                               PEAK_FP32)
+
+            def plain_fwd():
+                reproj_min_plain(preds, targ)
+                reproj_min_plain(ident[:, :, None], targ)
 
             def lib_fwd():
-                return reprojection_loss(preds, targ[:, None]).amin(2)[:, :, 0]
+                reprojection_loss(preds, targ[:, None]).amin(2)[:, :, 0]
+                reprojection_loss(ident[:, :, None], targ[:, None]).amin(2)[:, :, 0]
 
-            # As in the step: the warped stack asks K1 for the routing code.
-            route = role == "warped"
             row.update(bound_ms=bnd, bound_by=by,
-                       ms=time_ms(torch, lambda: _fwd(preds, targ, route), reps=10),
-                       plain_ms=time_ms(torch, lambda: reproj_min_plain(preds, targ), reps=5),
+                       ms=time_ms(torch, lambda: _fwd(preds, targ, True, ident), reps=10),
+                       plain_ms=time_ms(torch, plain_fwd, reps=5),
                        library_ms=time_ms(torch, lib_fwd, reps=5))
             for k in ("ms", "plain_ms", "library_ms", "bound_ms"):
-                tot["k1_" + k] += row[k]
-            if role == "warped":
-                pg = preds.detach().requires_grad_()
+                tot["k1_" + k] = row[k]
+            pg = preds.detach().requires_grad_()
+            n_in = preds.numel() * preds.element_size() + targ.numel() * targ.element_size()
 
-                def lib_fwd_bwd():
-                    reprojection_loss(pg, targ[:, None]).amin(2)[:, :, 0].backward(cot)
+            def lib_fwd_bwd():
+                reprojection_loss(pg, targ[:, None]).amin(2)[:, :, 0].backward(cot)
 
-                bnd, by = bound_ms(2 * n_in + 4 * s_ * b_ * HW * HW,
-                                   REPROJ_OPS_BWD * n_pix, PEAK_FP32)
-                row.update(bwd_bound_ms=bnd, bwd_bound_by=by,
-                           bwd_ms=time_ms(torch, lambda: _bwd(preds, targ, cot, code), reps=10),
-                           bwd_plain_ms=time_ms(
-                               torch, lambda: _reproj_bwd_plain(preds, targ, cot), reps=5),
-                           bwd_library_ms=time_ms(torch, lib_fwd_bwd, reps=5) - row["library_ms"])
-                for k in ("ms", "plain_ms", "library_ms", "bound_ms"):
-                    tot["k2_" + k] += row["bwd_" + k]
-                tot["bound_by_fwd"], tot["bound_by_bwd"] = row["bound_by"], by
+            def lib_warp():
+                reprojection_loss(preds, targ[:, None]).amin(2)[:, :, 0]
+
+            bnd, by = bound_ms(2 * n_in + 4 * s_ * b_ * HW * HW,
+                               REPROJ_OPS_BWD * preds.numel(), PEAK_FP32)
+            row.update(bwd_bound_ms=bnd, bwd_bound_by=by,
+                       bwd_ms=time_ms(torch, lambda: _bwd(preds, targ, cot, code), reps=10),
+                       bwd_plain_ms=time_ms(
+                           torch, lambda: _reproj_bwd_plain(preds, targ, cot), reps=5),
+                       bwd_library_ms=time_ms(torch, lib_fwd_bwd, reps=5)
+                       - time_ms(torch, lib_warp, reps=5))
+            for k in ("ms", "plain_ms", "library_ms", "bound_ms"):
+                tot["k2_" + k] = row["bwd_" + k]
+            tot["bound_by_fwd"], tot["bound_by_bwd"] = row["bound_by"], by
         rows.append(row)
         log(f"K1/K2 {row}")
-        del preds, targ, cot, out, ref, code
+        del preds, ident, targ, cot, out, ref, ref_ident, ident_l, code
         torch.cuda.empty_cache()
+    log(f"K1 / plain distance to float64 (largest): {k1_f64}")
     log(f"K2 / plain distance to float64 (max, RMS): {f64_ratios}")
     return {"rows": rows, "k1_max_abs_err": err_f, "k2_max_abs_err": err_b,
-            "per_step": dict(tot), "k2_f64_ratios": f64_ratios}
+            "per_step": dict(tot), "k1_f64": k1_f64, "k2_f64_ratios": f64_ratios}
 
 
 def phase_conv_bwd(torch, sites) -> dict:
@@ -830,7 +941,7 @@ def phase_train(torch) -> dict:
         step = make_train_step(model, dict(TRAIN_CFG, use_pallas_reproj=on,
                                            pallas_reproj_bf16=False), seed=0,
                                steps_per_epoch=STEPS_PER_EPOCH)
-        set_kernels(model, on, on, on)
+        set_kernels(model, on, on, on, stem_pool=on)
         probes = []
         hooks = cct_probe(torch, model, probes)
         m = step(run_batch)
@@ -892,7 +1003,7 @@ def phase_train(torch) -> dict:
     step_on = make_train_step(model, TRAIN_CFG, seed=3, steps_per_epoch=STEPS_PER_EPOCH)
 
     def turn(on: bool, n: int = 5) -> list[float]:
-        set_kernels(model, on, on, on)
+        set_kernels(model, on, on, on, stem_pool=on)
         fn = step_on if on else step_off
         fn(batch)
         out = []
@@ -919,7 +1030,7 @@ def phase_train(torch) -> dict:
     log(f"train bf16 frames/s {fps}")
 
     # The main path: counts set to 0 just before one step, read just after.
-    set_kernels(model, True, True, True)
+    set_kernels(model, True, True, True, stem_pool=True)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     kernels.reset_launch_counts()
@@ -949,18 +1060,25 @@ def phase_train(torch) -> dict:
     def kernel_ms(sub):
         return sum(v for k, v in busy.items() if sub in k)
 
+    top = dict(busy.most_common(12))
     res["profiler"] = {
         "k1": count("reproj_fwd"), "k2": count("reproj_bwd"), "k3": count("conv3x3_bf16"),
         "k4": count("wgrad_bf16"), "k5": count("maxpool5x5_nhwc"),
-        "k5_bwd": count("maxpool5x5_bwd_nhwc"),
+        "k5_bwd": count("maxpool5x5_bwd_nhwc"), "stem_pool_bwd": count("maxpool3x3s2_bwd"),
         "kernel_busy_ms": {"k1": kernel_ms("reproj_fwd"), "k2": kernel_ms("reproj_bwd"),
                            "k3": kernel_ms("conv3x3_bf16"), "k4": kernel_ms("wgrad_bf16"),
                            "k4_sum_splits": kernel_ms("sum_splits"),
                            "k5": kernel_ms("maxpool5x5_nhwc"),
-                           "k5_bwd": kernel_ms("maxpool5x5_bwd_nhwc")},
+                           "k5_bwd": kernel_ms("maxpool5x5_bwd_nhwc"),
+                           "stem_pool_bwd": kernel_ms("maxpool3x3s2_bwd")},
+        # The bf16 equality masks and selects of the plain pool backwards.
+        "bf16_eq_ms": kernel_ms("CompareEqFunctor<c10::BFloat16"),
+        "where_ms": kernel_ms("where_kernel_impl"),
+        "where_or_eq_in_top12": any("where_kernel_impl" in k or "CompareEqFunctor" in k
+                                    for k in top),
         "device_events": sum(names.values()), "device_busy_ms": busy_ms,
         "device_span_ms": span_ms, "idle_share": 1 - busy_ms / span_ms if span_ms else None,
-        "top_kernels_ms": dict(busy.most_common(12)),
+        "top_kernels_ms": top,
     }
     log(f"train launches {res['launches']}; peak {res['peak_memory_gb']:.2f} GB; "
         f"device operations {res['profiler']['device_events']}; profiler {res['profiler']}")
@@ -1006,6 +1124,7 @@ def main() -> int:
     n_k3_train = sum(s["k3"] for s in train_sites)
     k3 = phase_k3(torch, sites, train_sites)
     k5 = phase_k5(torch)
+    sp = phase_stem_pool(torch)
     ev = phase_eval(torch)
     st = phase_stream(torch, n_k3)
     rp = phase_reproj(torch)
@@ -1024,12 +1143,13 @@ def main() -> int:
     # format than channels-last (maxpool5x5_bwd_cot_copy counts the copies).
     want = {"conv3x3": n_k3_train, "conv3x3_dgrad": n_k3_train,
             "conv3x3_wgrad": n_k3_train, "maxpool5x5": 16, "maxpool5x5_bwd": 16,
-            "maxpool5x5_bwd_cot_copy": 0, "reproj_fwd": 2, "reproj_bwd": 1}
+            "maxpool5x5_bwd_cot_copy": 0, "maxpool3x3s2_bwd": 4,
+            "maxpool3x3s2_bwd_cot_copy": 0, "reproj_fwd": 1, "reproj_bwd": 1}
     if tr["launches"] != want:
         raise AssertionError(f"train main-path launches {tr['launches']}, expected {want}")
     tp = tr["profiler"]
-    if (tp["k1"], tp["k2"], tp["k3"], tp["k4"], tp["k5"], tp["k5_bwd"]) != (
-            2, 1, 2 * n_k3_train, n_k3_train, 16, 16):
+    if (tp["k1"], tp["k2"], tp["k3"], tp["k4"], tp["k5"], tp["k5_bwd"], tp["stem_pool_bwd"]) != (
+            1, 1, 2 * n_k3_train, n_k3_train, 16, 16, 4):
         raise AssertionError(f"train profiler kernel counts {tp}")
 
     def entry(kid, name, src, replaces, count, err, per, bound_by):
@@ -1067,11 +1187,16 @@ def main() -> int:
                    tl["maxpool5x5_bwd"], k5["bwd_max_abs_err"], k5["per_step_bwd"],
                    k5["bound_by"]),
              max_pool2d_bwd_ms_for_scale=k5["per_step_bwd"]["max_pool2d_ms"]),
+        # `_mp3_bwd`, XLA in JAX (no Pallas kernel); library_ms null as above.
+        dict(entry("stem-pool-bwd", "maxpool3x3s2_bwd", K3S2_SRC,
+                   "jperceiver_tpu/ops/pallas/maxpool.py:157", tl["maxpool3x3s2_bwd"],
+                   sp["max_abs_err"], sp["per_step"], sp["bound_by"]),
+             max_pool2d_bwd_ms_for_scale=sp["per_step"]["max_pool2d_bwd_ms"]),
     ]}
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
     with open(os.path.join(ROOT, "chiprun_out", "chip_smoke.json"), "w") as f:
         json.dump({"card": card, "build_s": build_s, "ptxas": ptxas, "k3_sites": n_k3,
-                   "k3": k3, "k5": k5, "eval": ev, "stream": st, "reproj": rp,
+                   "k3": k3, "k5": k5, "stem_pool": sp, "eval": ev, "stream": st, "reproj": rp,
                    "conv_bwd": cb, "train": tr,
                    "seconds": time.perf_counter() - t_start, "table": table},
                   f, indent=1)

@@ -6,9 +6,11 @@ edge-aware smoothness, per scale, under the JAX package's keys and weights.
 reference's `batch_processor` does.
 
 Tensors are NCHW; every loss is computed in fp32 whatever the compute
-dtype of the model. The reprojection stack goes through `reproj_min`
-(kernels K1/K2 on the card) unless `use_pallas_reproj` is False, when it
-runs the JAX package's unfused path in plain PyTorch.
+dtype of the model. The reprojection stack goes through `reproj_min`, or
+with automask `reproj_min_automask`, which gives the identity pairs' losses
+from the same launch (kernels K1/K2 on the card), unless
+`use_pallas_reproj` is False, when it runs the JAX package's unfused path
+in plain PyTorch.
 """
 
 from __future__ import annotations
@@ -17,7 +19,7 @@ from typing import Any, Mapping
 
 import torch
 
-from ..ops.cuda import reproj_min
+from ..ops.cuda import reproj_min, reproj_min_automask
 from ..ops.geometry import backproject, disp_to_depth, project
 from ..ops.photometric import reprojection_loss
 from ..ops.sampling import grid_sample_multi, resize_area, resize_bilinear
@@ -152,13 +154,14 @@ def compute_losses(outputs: Mapping[str, torch.Tensor],
         targ = target
         if reproj_operand_bf16(cfg, use_kernel, b):
             targ = targ.to(torch.bfloat16)
-        if automask:
-            # Identity pairs on the scale axis with one frame each: pure
-            # data, so no backward.
-            with torch.no_grad():
-                ident_l = reproj_min(ident[:, :, None].to(targ.dtype), targ)
         pstack = torch.stack([all_preds[f] for f in fids], 2)  # (B, S, F, 3, H, W)
-        min_warp = reproj_min(pstack.transpose(0, 1).to(targ.dtype), targ)
+        pstack = pstack.transpose(0, 1).to(targ.dtype)
+        if automask:
+            # The identity pairs' losses (F, B, H, W) come from the same
+            # launch; they are pure data, so they get no backward.
+            min_warp, ident_l = reproj_min_automask(pstack, ident.to(targ.dtype), targ)
+        else:
+            min_warp = reproj_min(pstack, targ)
     else:
         if automask:
             with torch.no_grad():

@@ -121,15 +121,22 @@ class Conv3x3(CastConv2d):
 
 
 def set_kernels(model: nn.Module, conv3x3_shallow: bool = True,
-                conv3x3_deep: bool = True, maxpool5x5: bool = True) -> None:
+                conv3x3_deep: bool = True, maxpool5x5: bool = True, *,
+                stem_pool: bool = True) -> None:
     """Route `model`'s sites to the hand-written kernels or away from them:
     K3's two gates (`use_pallas_conv`, `use_pallas_conv_deep`) on every
-    `Conv3x3`, and K5 (else its plain version) in every `CRPBlock`."""
+    `Conv3x3`, K5 and its backward kernel (else their plain versions) in
+    every `CRPBlock`, and the stem pool's backward kernel (else its plain
+    version) in every `ResNet`."""
+    from .resnet import ResNet
+
     for m in model.modules():
         if isinstance(m, Conv3x3):
             m.gate_shallow, m.gate_deep = bool(conv3x3_shallow), bool(conv3x3_deep)
         elif isinstance(m, CRPBlock):
             m.use_kernel = bool(maxpool5x5)
+        elif isinstance(m, ResNet):
+            m.use_kernel = bool(stem_pool)
 
 
 class ConvReflect3x3(nn.Module):

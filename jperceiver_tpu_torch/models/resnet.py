@@ -5,7 +5,8 @@ Keys follow the torchvision-style ResNet of the reference. The stem is a
 plain 7x7/s2 conv on the same weight (the JAX `StemConv` is a TPU rewrite
 of it). BatchNorm is `common.BatchNorm2d`, flax's BatchNorm under the
 `nn.BatchNorm2d` keys. The stem max-pool has the equality-mask backward of
-the JAX `max_pool_3x3_s2`.
+the JAX `max_pool_3x3_s2`: the kernel `maxpool3x3s2_bwd` on a CUDA tensor
+while `use_kernel` is set (`common.set_kernels`), else its plain version.
 """
 
 from __future__ import annotations
@@ -87,6 +88,7 @@ class ResNet(nn.Module):
         self.conv1 = CastConv2d(in_channels, 64, 7, stride=2, padding=3,
                                 bias=False, dtype=dtype)
         self.bn1 = BatchNorm2d(64)
+        self.use_kernel = True  # the stem pool's backward kernel
         c = 64
         for i, (width, n) in enumerate(zip((64, 128, 256, 512), _STAGES[depth])):
             blocks = []
@@ -99,7 +101,7 @@ class ResNet(nn.Module):
     def forward(self, x: torch.Tensor) -> list[torch.Tensor]:
         y = F.relu(self.bn1(self.conv1(x)))
         feats = [y]
-        y = maxpool3x3s2(y)
+        y = maxpool3x3s2(y, self.use_kernel)
         for layer in (self.layer1, self.layer2, self.layer3, self.layer4):
             y = layer(y)
             feats.append(y)

@@ -16,7 +16,8 @@ from pathlib import Path
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "_build"
-SOURCES = ("conv3x3.cu", "conv3x3_wgrad.cu", "maxpool5x5.cu", "reproj.cu")
+SOURCES = ("conv3x3.cu", "conv3x3_wgrad.cu", "maxpool5x5.cu", "maxpool3x3s2.cu",
+           "reproj.cu")
 NVCC_FLAGS = (
     "-O3",
     "-std=c++17",
@@ -41,7 +42,8 @@ _SIGNATURES = {
     "jp_conv3x3_wgrad_f32": (_P, _P, _P, _P) + (_I,) * 10 + (_P,),
     "jp_maxpool5x5_fwd": (_P, _P) + (_I,) * 9 + (_P,),
     "jp_maxpool5x5_bwd": (_P, _P, _P, _P) + (_I,) * 9 + (_P,),
-    "jp_reproj_fwd": (_P, _P, _P, _P) + (_I,) * 7 + (_P,),
+    "jp_maxpool3x3s2_bwd": (_P, _P, _P, _P) + (_I,) * 6 + (_P,),
+    "jp_reproj_fwd": (_P,) * 6 + (_I,) * 9 + (_P,),
     "jp_reproj_bwd": (_P, _P, _P, _P, _P) + (_I,) * 7 + (_P,),
 }
 

@@ -15,12 +15,30 @@
 // (S, B, F, C, H, W) and the target (B, C, H, W), both bf16 or both fp32, channel-planar;
 // every statistic is fp32; the output is (S, B, H, W) fp32.
 //
-// K1: one thread block per (s, b) and 8 x 32 pixel tile stages the target and every
-// frame's channels of the tile plus a 1-pixel reflect halo in shared memory as fp32 (the
-// target's statistics are computed once for all frames) and computes each pixel's 3x3 sums
-// from there. When asked, it also writes a routing code per (s, b, pixel): for each link
-// f = 1 .. F-1 of the chain best_f = min(best_{f-1}, rl_f), two bits saying whether rl_f
-// was greater than (0), less than (1) or equal to (2) best_{f-1}. Bound: bytes.
+// K1 also takes, optionally, FI identity frames (FI, B, C, H, W) against the same target
+// (the automask pairs of the training step) and writes each one's loss (FI, B, H, W) fp32,
+// with no frame-min and no code: one launch serves both calls of the step. When asked, it
+// writes a routing code per (s, b, pixel): for each link f = 1 .. F-1 of the chain
+// best_f = min(best_{f-1}, rl_f), two bits saying whether rl_f was greater than (0), less
+// than (1) or equal to (2) best_{f-1}.
+//
+// K1's design: one block per (b, tile) of 32 columns x TH rows (TH = 8, 16 or 32, picked by
+// `reproj.py::k1_plan`; 32 at 1024^2, a halo of 1.13x), 8 TH threads. The block walks
+// every frame that reads this target -- each scale's frames, then the identity frames --
+// so the target is staged (as fp32, with its 1-pixel reflect halo) and its window
+// statistics mu_y, sigma_y are formed once a tile and kept in registers for all of them.
+// - The frames pass through a two-stage ring in shared memory in the operand dtype: frame
+//   k+1 is copied by 16-byte `cp.async` vectors (rows reflect whole; element by element
+//   through the reflect only where a vector leaves the image) while frame k computes, with
+//   one barrier a frame.
+// - Separable window sums: a thread owns one column and four rows of the tile. It walks
+//   down the six staged rows around them, forms each row's 3-sums of x, x^2 and x*y from
+//   the three columns around its own, and adds the last three rows' sums into the window
+//   sums of x, x^2, x*y; the term takes the target's statistics pre-combined: 9 shared
+//   loads and about 45 fp32 operations (two of them MUFU) a pixel and plane.
+// Bound on this card: bytes at 3.35 TB/s (every frame and the target read once, the
+// outputs and code written once). Above it: the staging alone and the arithmetic alone each
+// take most of the kernel's time, and they overlap only in part (`chip_k1_sweep.py`).
 //
 // K2 returns d out / d preds for a cotangent (S, B, H, W) fp32, in the preds' dtype. The
 // frame-min routes it as `jnp.minimum` does (a tie splits it in halves down the chain),
@@ -61,7 +79,6 @@
 
 namespace {
 
-constexpr int TW = 32, TH = 8, THREADS = TW * TH;
 constexpr int MAX_C = 4, MAX_F = 8;
 constexpr float kC1 = 0.01f * 0.01f, kC2 = 0.03f * 0.03f;
 constexpr float kSsimW = 0.85f, kL1W = 0.15f, kEps = 1e-3f, kNinth = 1.0f / 9.0f;
@@ -85,113 +102,194 @@ __device__ __forceinline__ int reflect(int v, int n) {
   return min(max(v, 0), n - 1);
 }
 
-// Stage the target's C channel planes and then the F*C planes of the preds of one (s, b),
-// over a (rh x rw) region whose top-left image position is (r0, c0), into shared memory
-// as fp32, reflect-padded.
-template <typename T>
-__device__ void stage(float* dst, const T* targ, const T* preds, int C, int F, int rh, int rw,
-                      int r0, int c0, int H, int W) {
-  const int n = rh * rw;
-  const size_t plane = (size_t)H * W;
-  for (int e = threadIdx.x; e < (C + F * C) * n; e += blockDim.x) {
-    const int pl = e / n, k = e - pl * n;
-    const int r = k / rw, q = k - r * rw;
-    const T* src = pl < C ? targ + pl * plane : preds + (pl - C) * plane;
-    dst[e] = to_f32(src[(size_t)reflect(r0 + r, H) * W + reflect(c0 + q, W)]);
-  }
-}
-
-struct Win {
-  float sx, sxx, sxy;
-};
-
-// 3x3 window sums at region position (r, q) (top-left of the window) of x, x^2 and x*y.
-__device__ __forceinline__ Win window(const float* x, const float* y, int r, int q, int rw) {
-  Win w = {0.f, 0.f, 0.f};
-#pragma unroll
-  for (int dr = 0; dr < 3; ++dr)
-#pragma unroll
-    for (int dq = 0; dq < 3; ++dq) {
-      const float a = x[(r + dr) * rw + q + dq], b = y[(r + dr) * rw + q + dq];
-      w.sx += a;
-      w.sxx += a * a;
-      w.sxy += a * b;
-    }
-  return w;
-}
-
-__device__ __forceinline__ void target_stats(const float* y, int r, int q, int rw, float* mu_y,
-                                             float* sig_y) {
-  float s = 0.f, ss = 0.f;
-#pragma unroll
-  for (int dr = 0; dr < 3; ++dr)
-#pragma unroll
-    for (int dq = 0; dq < 3; ++dq) {
-      const float b = y[(r + dr) * rw + q + dq];
-      s += b;
-      ss += b * b;
-    }
-  *mu_y = s * kNinth;
-  *sig_y = ss * kNinth - *mu_y * *mu_y;
-}
-
-// The per-channel loss term at one pixel from its window sums.
-__device__ __forceinline__ float term(const Win& w, float mu_y, float sig_y, float xc, float yc) {
-  const float mu_x = w.sx * kNinth;
-  const float sig_x = w.sxx * kNinth - mu_x * mu_x;
-  const float sig_xy = w.sxy * kNinth - mu_x * mu_y;
-  const float num = (2.f * mu_x * mu_y + kC1) * (2.f * sig_xy + kC2);
-  const float den = (mu_x * mu_x + mu_y * mu_y + kC1) * (sig_x + sig_y + kC2);
-  const float s = fminf(fmaxf((1.f - num / den) * 0.5f, 0.f), 1.f);
-  const float d = yc - xc;
-  return kSsimW * s + kL1W * sqrtf(d * d + kEps * kEps);
-}
-
 // ----------------------------------------------------------------------------------------
 // K1: forward
 // ----------------------------------------------------------------------------------------
 
-template <typename T>
-__global__ void __launch_bounds__(THREADS)
-reproj_fwd(const T* __restrict__ preds, const T* __restrict__ targ, float* __restrict__ out,
-           uint16_t* __restrict__ code, int B, int F, int C, int H, int W) {
-  extern __shared__ float smem[];
-  constexpr int RH = TH + 2, RW = TW + 2, N = RH * RW;
-  float* ys = smem;          // [C][N]
-  float* xs = smem + C * N;  // [F][C][N]
-  const int sb = blockIdx.z, b = sb % B;
-  const int i0 = blockIdx.y * TH, j0 = blockIdx.x * TW;
+constexpr int K1_TW = 32;  // tile columns: one warp across
+constexpr int K1_RPT = 4;  // output rows a thread
+
+// A K1 block's shared memory: a two-stage ring of staged frames in T, then the target in
+// fp32.
+template <typename T, int C, int TH>
+struct K1Layout {
+  static constexpr int A = 16 / sizeof(T);        // elements in 16 bytes
+  static constexpr int PITCH = 2 * A + K1_TW;      // x row: image column j0 - A + k at k
+  static constexpr int VECS = PITCH / A;
+  static constexpr int ROWS = TH + 2;              // image rows i0 - 1 .. i0 + TH
+  static constexpr int FRAME = C * ROWS * PITCH;   // one frame's planes, in T
+  static constexpr int YP = K1_TW + 2;             // target row: column j0 - 1 + q at q
+  static constexpr int THREADS = K1_TW * TH / K1_RPT;
+  static constexpr int BYTES = 2 * FRAME * (int)sizeof(T) + C * ROWS * YP * 4;
+};
+
+// Stage a frame's C planes (src, channel-planar) over image rows i0-1 .. i0+TH and columns
+// j0-1 .. j0+32, reflect-padded. Rows map whole through the reflect, so every 16-byte vector
+// of a row that lies in the image is one `cp.async`; the vectors that leave it go element
+// by element (only the elements the windows read).
+template <typename T, int C, int TH>
+__device__ __forceinline__ void k1_stage(T* dst, const T* src, int i0, int j0, int H, int W,
+                                         bool vec_rows) {
+  using L = K1Layout<T, C, TH>;
+  constexpr int A = L::A;
   const size_t plane = (size_t)H * W;
-
-  stage(smem, targ + (size_t)b * C * plane, preds + (size_t)sb * F * C * plane, C, F, RH, RW,
-        i0 - 1, j0 - 1, H, W);
-  __syncthreads();
-
-  const int tx = threadIdx.x % TW, ty = threadIdx.x / TW;
-  const int i = i0 + ty, j = j0 + tx;
-  if (i >= H || j >= W) return;
-  float mu_y[MAX_C], sig_y[MAX_C];
-  for (int c = 0; c < C; ++c) target_stats(ys + c * N, ty, tx, RW, &mu_y[c], &sig_y[c]);
-  float best = 0.f;
-  unsigned route = 0;
-  for (int f = 0; f < F; ++f) {
-    float acc = 0.f;
-    for (int c = 0; c < C; ++c) {
-      const float* x = xs + (f * C + c) * N;
-      const float* y = ys + c * N;
-      const Win w = window(x, y, ty, tx, RW);
-      acc += term(w, mu_y[c], sig_y[c], x[(ty + 1) * RW + tx + 1], y[(ty + 1) * RW + tx + 1]);
-    }
-    const float rl = acc * (1.f / C);
-    if (f == 0) {
-      best = rl;
+  for (int e = threadIdx.x; e < C * L::ROWS * L::VECS; e += L::THREADS) {
+    const int v = e % L::VECS, rr = (e / L::VECS) % L::ROWS, c = e / (L::VECS * L::ROWS);
+    const T* row = src + c * plane + (size_t)reflect(i0 - 1 + rr, H) * W;
+    const int c0 = j0 - A + v * A;
+    T* d = dst + (c * L::ROWS + rr) * L::PITCH + v * A;
+    if (vec_rows && c0 >= 0 && c0 + A <= W) {
+      cp_async16(d, row + c0, true);
     } else {
-      route |= (rl < best ? 1u : (rl == best ? 2u : 0u)) << (2 * (f - 1));
-      best = fminf(best, rl);
+#pragma unroll
+      for (int u = 0; u < A; ++u)
+        if (v * A + u >= A - 1 && v * A + u <= A + K1_TW) d[u] = row[reflect(c0 + u, W)];
     }
   }
-  out[(size_t)sb * plane + (size_t)i * W + j] = best;
-  if (code != nullptr) code[(size_t)sb * plane + (size_t)i * W + j] = (uint16_t)route;
+}
+
+// The target's window statistics at one pixel and channel, in the form the term uses:
+// 2 mu_y, mu_y^2 + C1 and sigma_y + C2.
+struct TargStat {
+  float m2, a, b;
+};
+
+// The per-channel loss term at one pixel from its 3x3 window sums of x, x^2 and x*y, the
+// target's statistics and the centre values: with p = 2 mu_x mu_y,
+//   num = (p + C1) (2 sum(xy)/9 + C2 - p),
+//   den = (mu_x^2 + mu_y^2 + C1) (sum(x^2)/9 + sigma_y + C2 - mu_x^2),
+// the contract's uncentred statistics, and the Charbonnier root as q rsqrt(q).
+__device__ __forceinline__ float term(float sx, float sxx, float sxy, const TargStat& t,
+                                      float xc, float yc) {
+  const float mu_x = sx * kNinth;
+  const float p = mu_x * t.m2;
+  const float num = (p + kC1) * (fmaf(2.f * kNinth, sxy, kC2) - p);
+  const float den = fmaf(mu_x, mu_x, t.a) * fmaf(-mu_x, mu_x, fmaf(sxx, kNinth, t.b));
+  const float s = __saturatef(fmaf(-0.5f, __fdividef(num, den), 0.5f));
+  const float d = yc - xc, q = fmaf(d, d, kEps * kEps);
+  return fmaf(kSsimW, s, kL1W * (q * rsqrtf(q)));
+}
+
+// One channel plane of one frame: adds the term at the thread's K1_RPT pixels to acc. xs is
+// the staged plane at the thread's first row and the window's left column, ys the target's.
+// Row k's 3-sums enter the window sums of pixels k-2 .. k (rows k-2, k-1, k).
+template <typename T, int PITCH>
+__device__ __forceinline__ void k1_plane(const T* xs, const float* ys, const TargStat* ts,
+                                         float* acc) {
+  constexpr int YP = K1_TW + 2;
+  float hx[2] = {0.f, 0.f}, hxx[2] = {0.f, 0.f}, hxy[2] = {0.f, 0.f}, xc = 0.f, yc = 0.f;
+#pragma unroll
+  for (int k = 0; k < K1_RPT + 2; ++k) {
+    const float a0 = to_f32(xs[k * PITCH]), a1 = to_f32(xs[k * PITCH + 1]);
+    const float a2 = to_f32(xs[k * PITCH + 2]);
+    const float b0 = ys[k * YP], b1 = ys[k * YP + 1], b2 = ys[k * YP + 2];
+    const float sx = a0 + a1 + a2, sxx = a0 * a0 + a1 * a1 + a2 * a2;
+    const float sxy = a0 * b0 + a1 * b1 + a2 * b2;
+    if (k >= 2)
+      acc[k - 2] += term(hx[0] + hx[1] + sx, hxx[0] + hxx[1] + sxx, hxy[0] + hxy[1] + sxy,
+                         ts[k - 2], xc, yc);
+    hx[0] = hx[1], hxx[0] = hxx[1], hxy[0] = hxy[1];
+    hx[1] = sx, hxx[1] = sxx, hxy[1] = sxy;
+    xc = a1, yc = b1;
+  }
+}
+
+// At most 85 registers a thread: three blocks of 256 threads (or six of 128, twelve of 64) a
+// SM.
+template <typename T, int C, int TH>
+__global__ void __launch_bounds__(K1Layout<T, C, TH>::THREADS, 768 / K1Layout<T, C, TH>::THREADS)
+reproj_fwd(const T* __restrict__ preds, const T* __restrict__ ident, const T* __restrict__ targ,
+           float* __restrict__ out, uint16_t* __restrict__ code, float* __restrict__ ident_out,
+           int S, int B, int F, int FI, int H, int W) {
+  using L = K1Layout<T, C, TH>;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* ring = reinterpret_cast<T*>(smem_raw);                                       // [2][FRAME]
+  float* ys = reinterpret_cast<float*>(smem_raw + 2 * L::FRAME * sizeof(T));      // [C][ROWS][YP]
+  const int b = blockIdx.z, i0 = blockIdx.y * TH, j0 = blockIdx.x * K1_TW;
+  const size_t plane = (size_t)H * W;
+  const int NW = S * F, NK = NW + FI;  // the warped frames (s, f), then the identity frames
+  const bool vec_rows = W % L::A == 0 && ((reinterpret_cast<uintptr_t>(preds) |
+                                           reinterpret_cast<uintptr_t>(ident)) & 15) == 0;
+  auto frame = [&](int k) -> const T* {
+    return k < NW ? preds + ((size_t)((k / F) * B + b) * F + k % F) * C * plane
+                  : ident + ((size_t)(k - NW) * B + b) * C * plane;
+  };
+
+  k1_stage<T, C, TH>(ring, frame(0), i0, j0, H, W, vec_rows);
+  cp_async_commit();
+  const T* tb = targ + (size_t)b * C * plane;
+  for (int e = threadIdx.x; e < C * L::ROWS * L::YP; e += L::THREADS) {
+    const int q = e % L::YP, rr = (e / L::YP) % L::ROWS, c = e / (L::YP * L::ROWS);
+    ys[e] = to_f32(tb[c * plane + (size_t)reflect(i0 - 1 + rr, H) * W + reflect(j0 - 1 + q, W)]);
+  }
+  __syncthreads();
+
+  // The target's window statistics at the thread's pixels, once for every frame.
+  const int tx = threadIdx.x % K1_TW, ty = threadIdx.x / K1_TW;
+  TargStat ts[C][K1_RPT];
+#pragma unroll
+  for (int c = 0; c < C; ++c) {
+    const float* yc = ys + (c * L::ROWS + K1_RPT * ty) * L::YP + tx;
+    float h[2] = {0.f, 0.f}, hh[2] = {0.f, 0.f};
+#pragma unroll
+    for (int k = 0; k < K1_RPT + 2; ++k) {
+      const float b0 = yc[k * L::YP], b1 = yc[k * L::YP + 1], b2 = yc[k * L::YP + 2];
+      const float s = b0 + b1 + b2, ss = b0 * b0 + b1 * b1 + b2 * b2;
+      if (k >= 2) {
+        const float m = (h[0] + h[1] + s) * kNinth;
+        const float sig = (hh[0] + hh[1] + ss) * kNinth - m * m;
+        ts[c][k - 2] = {2.f * m, fmaf(m, m, kC1), sig + kC2};
+      }
+      h[0] = h[1], hh[0] = hh[1];
+      h[1] = s, hh[1] = ss;
+    }
+  }
+
+  const int j = j0 + tx;
+  float best[K1_RPT], acc[K1_RPT];
+  unsigned route[K1_RPT];
+  for (int k = 0; k < NK; ++k) {
+    cp_async_wait<0>();
+    __syncthreads();  // frame k has landed; every thread is done with frame k - 1's buffer
+    if (k + 1 < NK) {
+      k1_stage<T, C, TH>(ring + ((k + 1) & 1) * L::FRAME, frame(k + 1), i0, j0, H, W, vec_rows);
+      cp_async_commit();
+    }
+    const T* xf = ring + (k & 1) * L::FRAME + K1_RPT * ty * L::PITCH + tx + L::A - 1;
+#pragma unroll
+    for (int p = 0; p < K1_RPT; ++p) acc[p] = 0.f;
+#pragma unroll
+    for (int c = 0; c < C; ++c)
+      k1_plane<T, L::PITCH>(xf + c * L::ROWS * L::PITCH,
+                            ys + (c * L::ROWS + K1_RPT * ty) * L::YP + tx, ts[c], acc);
+    if (k < NW) {
+      const int s = k / F, f = k % F;
+#pragma unroll
+      for (int p = 0; p < K1_RPT; ++p) {
+        const float rl = acc[p] * (1.f / C);
+        if (f == 0) {
+          best[p] = rl;
+          route[p] = 0u;
+        } else {
+          route[p] |= (rl < best[p] ? 1u : (rl == best[p] ? 2u : 0u)) << (2 * (f - 1));
+          best[p] = fminf(best[p], rl);
+        }
+        const int i = i0 + K1_RPT * ty + p;
+        if (f == F - 1 && i < H && j < W) {
+          const size_t at = ((size_t)s * B + b) * plane + (size_t)i * W + j;
+          out[at] = best[p];
+          if (code != nullptr) code[at] = (uint16_t)route[p];
+        }
+      }
+    } else {
+#pragma unroll
+      for (int p = 0; p < K1_RPT; ++p) {
+        const int i = i0 + K1_RPT * ty + p;
+        if (i < H && j < W)
+          ident_out[((size_t)(k - NW) * B + b) * plane + (size_t)i * W + j] = acc[p] * (1.f / C);
+      }
+    }
+  }
 }
 
 // ----------------------------------------------------------------------------------------
@@ -441,64 +539,101 @@ reproj_bwd(const T* __restrict__ preds, const T* __restrict__ targ,
   }
 }
 
-int smem_fwd(int F, int C) { return (C + F * C) * (TH + 2) * (TW + 2) * 4; }
 template <typename T>
 int smem_bwd(int C) {
   return 2 * C * SR * Staged<T>::PITCH * (int)sizeof(T) + 6 * NE * 4;
 }
 
-template <typename T>
-int launch(const void* preds, const void* targ, const float* cot, void* code, void* out, int S,
-           int B, int F, int C, int H, int W, cudaStream_t s) {
-  if (cot == nullptr) {
-    const dim3 grid((W + TW - 1) / TW, (H + TH - 1) / TH, S * B);
-    const int bytes = smem_fwd(F, C);
-    cudaError_t err =
-        cudaFuncSetAttribute(reproj_fwd<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    reproj_fwd<T><<<grid, THREADS, bytes, s>>>(
-        static_cast<const T*>(preds), static_cast<const T*>(targ), static_cast<float*>(out),
-        static_cast<uint16_t*>(code), B, F, C, H, W);
-  } else {
-    const dim3 grid((W + BT - 1) / BT, (H + BT - 1) / BT, S * B * F);
-    const int bytes = smem_bwd<T>(C);
-    cudaError_t err =
-        cudaFuncSetAttribute(reproj_bwd<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    reproj_bwd<T><<<grid, BTHREADS, bytes, s>>>(
-        static_cast<const T*>(preds), static_cast<const T*>(targ), cot,
-        static_cast<const uint16_t*>(code), static_cast<T*>(out), B, F, C, H, W);
-  }
+struct FwdArgs {
+  const void *preds, *ident, *targ;
+  float* out;
+  void* code;
+  float* ident_out;
+  int S, B, F, FI, H, W;
+};
+
+template <typename T, int C, int TH>
+int launch_fwd(const FwdArgs& a, cudaStream_t s) {
+  using L = K1Layout<T, C, TH>;
+  const dim3 grid((a.W + K1_TW - 1) / K1_TW, (a.H + TH - 1) / TH, a.B);
+  cudaError_t err = cudaFuncSetAttribute(reproj_fwd<T, C, TH>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, L::BYTES);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  reproj_fwd<T, C, TH><<<grid, L::THREADS, L::BYTES, s>>>(
+      static_cast<const T*>(a.preds), static_cast<const T*>(a.ident),
+      static_cast<const T*>(a.targ), a.out, static_cast<uint16_t*>(a.code), a.ident_out, a.S,
+      a.B, a.F, a.FI, a.H, a.W);
   return static_cast<int>(cudaGetLastError());
 }
 
-int dispatch(const void* preds, const void* targ, const float* cot, void* code, void* out, int S,
-             int B, int F, int C, int H, int W, int dtype, void* stream) {
-  if (F < 1 || F > MAX_F || C < 1 || C > MAX_C || H < 2 || W < 2 || S * B < 1)
-    return static_cast<int>(cudaErrorInvalidValue);
-  if (cot != nullptr && code == nullptr) return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 1)
-    return launch<__nv_bfloat16>(preds, targ, cot, code, out, S, B, F, C, H, W, s);
-  if (dtype == 0) return launch<float>(preds, targ, cot, code, out, S, B, F, C, H, W, s);
-  return static_cast<int>(cudaErrorInvalidValue);
+// The channels and the tile rows are compile-time constants, so a thread's statistics stay in
+// registers and its walks unroll.
+template <typename T, int C>
+int launch_fwd_th(const FwdArgs& a, int th, cudaStream_t s) {
+  switch (th) {
+    case 8: return launch_fwd<T, C, 8>(a, s);
+    case 16: return launch_fwd<T, C, 16>(a, s);
+    case 32: return launch_fwd<T, C, 32>(a, s);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+template <typename T>
+int launch_fwd_c(const FwdArgs& a, int C, int th, cudaStream_t s) {
+  switch (C) {
+    case 1: return launch_fwd_th<T, 1>(a, th, s);
+    case 2: return launch_fwd_th<T, 2>(a, th, s);
+    case 3: return launch_fwd_th<T, 3>(a, th, s);
+    case 4: return launch_fwd_th<T, 4>(a, th, s);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+template <typename T>
+int launch_bwd(const void* preds, const void* targ, const float* cot, const void* code,
+               void* grad, int S, int B, int F, int C, int H, int W, cudaStream_t s) {
+  const dim3 grid((W + BT - 1) / BT, (H + BT - 1) / BT, S * B * F);
+  const int bytes = smem_bwd<T>(C);
+  cudaError_t err =
+      cudaFuncSetAttribute(reproj_bwd<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  reproj_bwd<T><<<grid, BTHREADS, bytes, s>>>(
+      static_cast<const T*>(preds), static_cast<const T*>(targ), cot,
+      static_cast<const uint16_t*>(code), static_cast<T*>(grad), B, F, C, H, W);
+  return static_cast<int>(cudaGetLastError());
+}
+
+bool valid(int S, int B, int F, int C, int H, int W) {
+  return F >= 1 && F <= MAX_F && C >= 1 && C <= MAX_C && H >= 2 && W >= 2 && S >= 1 && B >= 1;
 }
 
 }  // namespace
 
-// preds (S, B, F, C, H, W) and targ (B, C, H, W), contiguous, both of `dtype`
-// (0 = float32, 1 = bfloat16); out (S, B, H, W) fp32; code (S, B, H, W) uint16, or null
-// for no routing code. Returns the cudaError_t.
-extern "C" int jp_reproj_fwd(const void* preds, const void* targ, float* out, void* code, int S,
-                             int B, int F, int C, int H, int W, int dtype, void* stream) {
-  return dispatch(preds, targ, nullptr, code, out, S, B, F, C, H, W, dtype, stream);
+// K1. preds (S, B, F, C, H, W), ident (FI, B, C, H, W) or null with FI = 0, and targ
+// (B, C, H, W), contiguous, all of `dtype` (0 = float32, 1 = bfloat16); out (S, B, H, W)
+// fp32; code (S, B, H, W) uint16, or null for no routing code; ident_out (FI, B, H, W) fp32;
+// th the tile rows of `k1_plan` (8, 16 or 32). Returns the cudaError_t.
+extern "C" int jp_reproj_fwd(const void* preds, const void* ident, const void* targ, float* out,
+                             void* code, float* ident_out, int S, int B, int F, int FI, int C,
+                             int H, int W, int th, int dtype, void* stream) {
+  if (!valid(S, B, F, C, H, W) || FI < 0 || (FI > 0 && (ident == nullptr || ident_out == nullptr)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const FwdArgs a{preds, ident, targ, out, code, ident_out, S, B, F, FI, H, W};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 1) return launch_fwd_c<__nv_bfloat16>(a, C, th, s);
+  if (dtype == 0) return launch_fwd_c<float>(a, C, th, s);
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
-// As jp_reproj_fwd, with cot (S, B, H, W) fp32 and the forward's routing code;
+// K2. preds and targ as for K1, cot (S, B, H, W) fp32 and the forward's routing code;
 // grad (S, B, F, C, H, W) of `dtype`.
 extern "C" int jp_reproj_bwd(const void* preds, const void* targ, const float* cot,
                              const void* code, void* grad, int S, int B, int F, int C, int H,
                              int W, int dtype, void* stream) {
-  return dispatch(preds, targ, cot, const_cast<void*>(code), grad, S, B, F, C, H, W, dtype,
-                  stream);
+  if (!valid(S, B, F, C, H, W) || code == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 1)
+    return launch_bwd<__nv_bfloat16>(preds, targ, cot, code, grad, S, B, F, C, H, W, s);
+  if (dtype == 0) return launch_bwd<float>(preds, targ, cot, code, grad, S, B, F, C, H, W, s);
+  return static_cast<int>(cudaErrorInvalidValue);
 }

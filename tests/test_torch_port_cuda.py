@@ -220,6 +220,44 @@ def test_reproj_kernels(cuda, dtype, b, h, w, f):
     assert (preds.grad.float() - dref.float()).abs().max().item() <= tol
 
 
+@pytest.mark.parametrize("f", [2, 3])
+@pytest.mark.parametrize("dtype,b", [(torch.float32, 1), (torch.bfloat16, 1),
+                                     (torch.bfloat16, 2)])
+@pytest.mark.parametrize("h,w", [(37, 45), (70, 100)])
+def test_reproj_automask_kernels(cuda, dtype, b, h, w, f):
+    """The fused K1 (warped frames and identity frames in one launch)
+    against its plain versions on both outputs, and K2 on the fused launch's
+    routing code against its plain version; B = 2 in bf16 was a TPU compiler
+    fault (ROADMAP, K2). 8-bit levels and exact frame ties, as in
+    `test_reproj_kernels`; 70 x 100 takes 32-row tiles' edges too."""
+    from jperceiver_tpu_torch.ops.cuda import reproj_min_automask, reproj_min_plain
+    from jperceiver_tpu_torch.ops.cuda.reproj import _reproj_bwd_plain
+
+    g = torch.Generator(device=cuda).manual_seed(b + h + 10 * f)
+    preds = torch.round(256 * torch.rand(4, b, f, 3, h, w, device=cuda, generator=g)) / 256
+    preds[:, :, 1, ..., : w // 2] = preds[:, :, 0, ..., : w // 2]
+    if f > 2:
+        preds[:, :, 2, :, : h // 2] = preds[:, :, 0, :, : h // 2]
+    preds = preds.to(dtype).requires_grad_()
+    ident = (torch.round(256 * torch.rand(f, b, 3, h, w, device=cuda, generator=g)) / 256).to(dtype)
+    targ = (torch.round(256 * torch.rand(b, 3, h, w, device=cuda, generator=g)) / 256).to(dtype)
+    cot = torch.randn(4, b, h, w, device=cuda, generator=g)
+    reset_launch_counts()
+    out, ident_l = reproj_min_automask(preds, ident, targ)
+    assert not ident_l.requires_grad and out.requires_grad
+    out.backward(cot)
+    assert launch_counts()["reproj_fwd"] == 1 and launch_counts()["reproj_bwd"] == 1
+    ref = reproj_min_plain(preds.detach(), targ)
+    ref_ident = reproj_min_plain(ident[:, :, None], targ)
+    dref = _reproj_bwd_plain(preds.detach(), targ, cot)
+    torch.cuda.synchronize()
+    assert out.shape == (4, b, h, w) and ident_l.shape == (f, b, h, w)
+    assert (out - ref).abs().max().item() <= 2e-5
+    assert (ident_l - ref_ident).abs().max().item() <= 2e-5
+    tol = (1e-4 if dtype == torch.float32 else 1e-2) * dref.float().abs().max().item()
+    assert (preds.grad.float() - dref.float()).abs().max().item() <= tol
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_reproj_tie_halves_the_cotangent(cuda, dtype):
     """Two identical frames: K1's code marks every pixel a tie, and K2 gives
@@ -236,13 +274,13 @@ def test_reproj_tie_halves_the_cotangent(cuda, dtype):
     one = one.clone().requires_grad_()
     reproj_min(two, targ).backward(cot)
     reproj_min(one, targ).backward(cot)
-    _, code = _fwd(two.detach(), targ, route=True)
+    _, code, _ = _fwd(two.detach(), targ, route=True)
     assert torch.equal(code, torch.full_like(code, 2))
     assert torch.equal(two.grad[:, :, 0], two.grad[:, :, 1])
     assert torch.equal(2 * two.grad[:, :, 0].float(), one.grad[:, :, 0].float())
     reset_launch_counts()
     with torch.no_grad():
-        _, none = _fwd(two.detach(), targ, route=False)
+        _, none, _ = _fwd(two.detach(), targ, route=False)
         reproj_min(two, targ)
     assert none is None and launch_counts()["reproj_bwd"] == 0
 
@@ -305,3 +343,36 @@ def test_kernel_routed_blocks_reach_every_parameter(cuda):
     for i, (a, ref) in enumerate(zip(grads[True], grads[False])):
         assert torch.isfinite(a).all() and ref.norm() > 0
         assert (a - ref).norm().item() <= 1e-2 * ref.norm().item(), i
+
+
+@pytest.mark.parametrize("cot_channels_last", [True, False])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("c,h,w", [(64, 36, 70), (13, 17, 23), (64, 96, 320)])
+def test_maxpool3x3s2_backward_kernel_bit_exact(cuda, dtype, c, h, w, cot_channels_last):
+    """`maxpool3x3s2_bwd` against the plain backward, bit for bit, on inputs
+    with ties, at even and odd sizes; through autograd one launch, and a
+    cotangent that is not channels-last copied once and counted."""
+    from jperceiver_tpu_torch.ops.cuda import (maxpool3x3s2, maxpool3x3s2_bwd,
+                                               maxpool3x3s2_bwd_plain)
+
+    g = torch.Generator(device=cuda).manual_seed(c + h)
+    x = torch.relu(torch.round(4 * torch.randn(2, c, h, w, device=cuda, generator=g)) / 4)
+    x = x.to(dtype).contiguous(memory_format=torch.channels_last).requires_grad_()
+    y = maxpool3x3s2(x)
+    cot = torch.randn(y.shape, device=cuda, generator=g).to(dtype)
+    if cot_channels_last:
+        cot = cot.contiguous(memory_format=torch.channels_last)
+    reset_launch_counts()
+    y.backward(cot)
+    counts = launch_counts()
+    assert counts["maxpool3x3s2_bwd"] == 1
+    assert counts["maxpool3x3s2_bwd_cot_copy"] == (0 if cot_channels_last else 1)
+    ref = maxpool3x3s2_bwd_plain(x.detach(), y.detach(), cot)
+    torch.cuda.synchronize()
+    assert x.grad.dtype == dtype and torch.equal(x.grad, ref)
+    assert torch.equal(maxpool3x3s2_bwd(x.detach(), y.detach(), cot), ref)
+    # With the kernel off the plain backward runs: no launch.
+    x.grad = None
+    reset_launch_counts()
+    maxpool3x3s2(x, False).backward(cot)
+    assert launch_counts()["maxpool3x3s2_bwd"] == 0 and torch.equal(x.grad, ref)

@@ -1,5 +1,6 @@
 """The CRP pool's kernels (K5 forward and `maxpool5x5_bwd`) replayed on the
-CPU, block by block as `k5_plan` has them, against the JAX package.
+CPU, block by block as `k5_plan` has them, and the stem pool's backward
+kernel (`maxpool3x3s2_bwd`) by its window walk, against the JAX package.
 
 On the card a block of the forward stages a (th+4) x (tw+4) tile of
 channel vectors with -inf outside the image, takes the 5-max along W of
@@ -14,6 +15,16 @@ error in the plan or in the staging offsets shows up before any card runs
 it. The results must equal JAX's `max_pool_5x5_s1` and its `_mp_bwd` bit
 for bit, in fp32 and bf16, on inputs with ties (quarter steps through a
 ReLU), at shapes whose tiles cut the image on every side.
+
+A thread of the stem pool's backward owns one input pixel and channel
+vector: an input row (column) of even index lies in window i / 2 only, an
+odd one in windows (i - 1) / 2 and (i + 1) / 2, the latter where it exists;
+the thread adds where(x == y[window], g[window], 0) over those windows, row
+window then column window, ascending, in the dtype. Here the four parity
+classes of (i, j) run as strided slices. The result must equal JAX's
+`max_pool_3x3_s2` VJP (`_mp3_bwd`, nine compares over the dilated grid) and
+the port's plain backward bit for bit, in fp32 and bf16, with ties, at even
+and odd sizes.
 """
 
 import jax
@@ -22,8 +33,9 @@ import numpy as np
 import pytest
 import torch
 
-from jperceiver_tpu.ops.pallas.maxpool import max_pool_5x5_s1
-from jperceiver_tpu_torch.ops.cuda.maxpool import k5_plan, maxpool5x5_bwd_plain
+from jperceiver_tpu.ops.pallas.maxpool import max_pool_3x3_s2, max_pool_5x5_s1
+from jperceiver_tpu_torch.ops.cuda.maxpool import (k5_plan, maxpool3x3s2_bwd_plain,
+                                                   maxpool5x5_bwd_plain)
 
 _DT = {"float32": (jnp.float32, torch.float32), "bfloat16": (jnp.bfloat16, torch.bfloat16)}
 _NEG = float("-inf")
@@ -144,3 +156,45 @@ def test_pool_plan_at_the_crp_shapes(s, backward):
     smem = ((plan.th + 4) * (plan.tw + 4) * plan.cb * vb if not backward else
             (plan.th * (plan.tw + 8) + 2 * (plan.th + 4) * (plan.tw + 4)) * plan.cb * vb)
     assert smem <= 227 * 1024 // 2
+
+
+def replay_stem_bwd(x, y, g):
+    """`maxpool3x3s2_bwd`'s walk on (B, H, W, C) tensors, one parity class
+    of (row, column) at a time. A window index past the last output is
+    skipped by the kernel; here it reads -inf (y) and 0 (g), a zero term."""
+    b, h, w, c = x.shape
+    ho, wo = y.shape[1], y.shape[2]
+    yp = torch.full((b, ho + 1, wo + 1, c), _NEG, dtype=y.dtype)
+    gp = torch.zeros((b, ho + 1, wo + 1, c), dtype=g.dtype)
+    yp[:, :ho, :wo], gp[:, :ho, :wo] = y, g
+    dx = torch.full_like(x, float("nan"))
+    for pi in (0, 1):
+        for pj in (0, 1):
+            xs = x[:, pi::2, pj::2]  # rows 2a + pi, columns 2e + pj
+            n, m = xs.shape[1], xs.shape[2]
+            acc = torch.zeros_like(xs)
+            for dr in range(pi + 1):  # windows a (and a + 1 for odd rows)
+                for dc in range(pj + 1):
+                    win = (slice(None), slice(dr, dr + n), slice(dc, dc + m))
+                    acc = acc + torch.where(xs == yp[win], gp[win], 0)
+            dx[:, pi::2, pj::2] = acc
+    return dx
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("b,h,w,c", [(2, 16, 20, 8), (1, 17, 23, 13), (2, 9, 6, 64),
+                                     (1, 24, 15, 16)])
+def test_stem_pool_backward_replay_matches_jax(b, h, w, c, dtype):
+    jdt, tdt = _DT[dtype]
+    rng = np.random.default_rng(h * w + c)
+    x = np.maximum(np.round(4 * rng.standard_normal((b, h, w, c))) / 4, 0).astype(np.float32)
+    want_y, vjp = jax.vjp(max_pool_3x3_s2, jnp.asarray(x, jdt))
+    g = rng.standard_normal(want_y.shape).astype(np.float32)
+    (want_dx,) = vjp(jnp.asarray(g, jdt))
+    xt, gt = torch.from_numpy(x).to(tdt), torch.from_numpy(g).to(tdt)
+    y = torch.from_numpy(np.array(want_y, np.float32)).to(tdt)
+    dx = replay_stem_bwd(xt, y, gt)
+    np.testing.assert_array_equal(dx.float().numpy(), np.asarray(want_dx, np.float32))
+    nchw = (0, 3, 1, 2)
+    plain = maxpool3x3s2_bwd_plain(xt.permute(nchw), y.permute(nchw), gt.permute(nchw))
+    assert torch.equal(plain.permute(0, 2, 3, 1), dx)

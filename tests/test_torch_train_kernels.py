@@ -144,8 +144,9 @@ def test_maxpool5x5_backward_routes_every_tie(use_kernel):
     assert not torch.equal(xr.grad, xt.grad)
 
 
+@pytest.mark.parametrize("use_kernel", [True, False])
 @pytest.mark.parametrize("h,w", [(16, 20), (17, 23)])
-def test_stem_pool_backward_routes_every_tie(h, w):
+def test_stem_pool_backward_routes_every_tie(h, w, use_kernel):
     rng = np.random.default_rng(h)
     x = _ties(rng, (2, h, w, 8))
     xj = jnp.asarray(x, jnp.bfloat16)
@@ -153,7 +154,7 @@ def test_stem_pool_backward_routes_every_tie(h, w):
     cot = np.round(4 * rng.standard_normal(y.shape)).astype(np.float32) / 4
     (want,) = vjp(jnp.asarray(cot, jnp.bfloat16))
     xt = nchw(x).to(torch.bfloat16).requires_grad_()
-    yt = maxpool3x3s2(xt)
+    yt = maxpool3x3s2(xt, use_kernel)
     np.testing.assert_array_equal(nhwc(yt), np.asarray(y, np.float32))
     yt.backward(nchw(cot).to(torch.bfloat16))
     np.testing.assert_array_equal(nhwc(xt.grad), np.asarray(want, np.float32))
