@@ -11,13 +11,15 @@ Phases, each of which raises on failure:
      1024^2 eval forward and training step (the same shapes), bf16 and
      fp32, pad 0 and 1, timed beside F.conv2d, with each site's share of
      its bound (kernel times are device times, `time_ms`; `enqueue_ms` is
-     the plain back-to-back time, which at small sites is the host's);
+     the plain back-to-back time, which at small sites is the host's); and
+     every site of the step at phase 9's B=3 in bf16, untimed;
   3. K5 (5x5 max-pool) and its backward kernel against their plain
      versions, bit for bit, at the four CRP shapes with ties, bf16 and fp32,
      timed beside F.max_pool2d and (for scale only: it routes a tie to one
      input) F.max_pool2d's backward; the plain backward's device operations
      counted in a profiler trace; the same for the stem pools' backward
      kernel (maxpool3x3s2_bwd) at the step's four pools and at odd sizes;
+     both pools also at phase 9's B=3 in bf16 at the step's shapes;
   4. the eval step at 1024^2, occ 256, both BEV branches, with pose, random
      weights from a seed: fp32 with the kernels on against off (cuDNN and
      the plain pool, TF32 off), bf16 finite and timed both ways, kernel
@@ -31,11 +33,13 @@ Phases, each of which raises on failure:
      beside the plain versions and the ATen path (reprojection_loss + amin,
      forward and autograd backward); in fp32 also on arbitrary pixels and on
      grid_sample outputs, with K1, K2 and their plain versions held to the
-     float64 forward and autograd gradient (and their ratios logged);
+     float64 forward and autograd gradient (and their ratios logged); and
+     at phase 9's B=3 in fp32, on 8-bit levels and grid_sample outputs;
   7. K3 as the data-grad (pad 2 and 1) and K4 (weight-grad) against their
      plain versions at every K3 site shape of the step, bf16 and fp32,
      timed beside cuDNN's conv2d_input / conv2d_weight, with each site's
-     share of its bound; K4 run twice and held bit for bit;
+     share of its bound; K4 run twice and held bit for bit; and bf16 at
+     phase 9's B=3, untimed;
   8. the flagship training step at 1024^2 (bench.py's configuration: road
      branch, B=1, Adam, clip 35), random weights from a seed: fp32 with the
      kernels on against off, both against the step in float64 (losses and
@@ -45,7 +49,19 @@ Phases, each of which raises on failure:
      frames/s with the kernels on and off in turns, the kernel launches of
      one step from the counters and a profiler trace (K1 once, the CRP
      pools' backward kernel 16 times and the stem pools' 4, no cotangent
-     copied), its device operations, busy time, idle share and peak memory.
+     copied), its device operations, busy time, idle share and peak memory;
+  9. the kitti_odom_1024 preset trained through the port's entry points
+     (Config.fromfile, build_model, get_dataset on simulated scenes,
+     DataLoader, Trainer.fit) for 2 epochs of 4 steps at B=3 with remat and
+     bf16 compute, with the preset's optimizer (Adam 1e-4, clip 35, the LR
+     step at epoch 50): the JAX Trainer's payload keys, one epoch_time an epoch,
+     epoch 2's sample order that of set_epoch(1), finite losses, BatchNorm
+     statistics moving, the kernel launches of the fit (every K3 site and
+     CRP pool of a checkpointed trunk twice a step) from the counters and,
+     a step, from a profiler trace of a third epoch, peak memory,
+     frames/s (whole fit, and past start-up: the last epoch without its
+     wait for the first batch), the loop's wait on the prefetch queue and
+     the card's idle share.
 
 Prints the card line, a JSON line describing every kernel, and last the
 device line. Full results go to chiprun_out/chip_smoke.json. Exits non-zero
@@ -86,6 +102,9 @@ TRAIN_CFG = dict(
     optimizer_config=dict(grad_clip=dict(max_norm=35, norm_type=2)),
     lr_config=dict(policy="step", warmup=None, step=[50]))
 STEPS_PER_EPOCH = 1000  # the LR milestones' epoch, as bench.py:173 sets it
+# Phase 9's batch: the kitti_odom_1024 preset's imgs_per_gpu. Phases 2, 3
+# and 7 also hold the kernels at it, in bf16 at the step's site shapes.
+FIT_B = 3
 # Operations a pixel, channel and frame of the fused reprojection loss (3x3
 # separable sums of x, x^2, xy; the SSIM and Charbonnier terms), forward
 # and backward (the backward recomputes the forward and gathers 3 fields).
@@ -224,8 +243,28 @@ def phase_k3(torch, sites, train_sites) -> dict:
                         bytes_t += count * n_bytes / HBM_BYTES_S
                 rows.append(row)
                 log(f"K3 {row}")
-    return {"rows": rows, "max_abs_err": max_err, "per_forward": dict(tot),
-            "bound_by": "bytes" if bytes_t >= ops_t else "operations"}
+    # Phase 9's fit: every site of the step at B = FIT_B in bf16 (K3's TMA
+    # boxes carry the batch coordinate), at the same tolerance, untimed.
+    fit_rows = []
+    for c, o, h, w, pad in sorted(per_step):
+        x = torch.randn(FIT_B, c, h + 2 - 2 * pad, w + 2 - 2 * pad, device="cuda", generator=g)
+        x = x.to(torch.bfloat16).contiguous(memory_format=torch.channels_last)
+        wt = (torch.randn(o, c, 3, 3, device="cuda", generator=g) / math.sqrt(9 * c)).to(x.dtype)
+        b = (0.1 * torch.randn(o, device="cuda", generator=g)).to(x.dtype)
+        y = conv3x3_fwd(x, wt, b, pad)
+        ref = conv3x3_plain(x, wt, b, pad)
+        err = (y.float() - ref.float()).abs().max().item()
+        row = {"batch": FIT_B, "c_in": c, "c_out": o, "h": h, "w": w, "pad": pad,
+               "dtype": str(x.dtype), "max_abs_err": err,
+               "tol": 1e-2 * max(1.0, ref.float().abs().max().item())}
+        if not err <= row["tol"] or tuple(y.shape) != (FIT_B, o, h, w):
+            raise AssertionError(f"K3 disagrees with its plain version: {row}")
+        max_err = max(max_err, err)
+        fit_rows.append(row)
+        log(f"K3 {row}")
+        del x, y, ref
+    return {"rows": rows, "fit_batch_rows": fit_rows, "max_abs_err": max_err,
+            "per_forward": dict(tot), "bound_by": "bytes" if bytes_t >= ops_t else "operations"}
 
 
 def phase_k5(torch) -> dict:
@@ -242,19 +281,22 @@ def phase_k5(torch) -> dict:
     cases = [(256, s, dt, 4 if dt == torch.bfloat16 else 0)
              for s in (32, 64, 128, 256) for dt in (torch.bfloat16, torch.float32)]
     cases += [(13, 20, torch.bfloat16, 0)]
-    for c, s, dtype, per_forward in cases:
+    # Phase 9's fit: the four CRP shapes at B = FIT_B in bf16, untimed.
+    cases = [(c, s, dt, n, 1) for c, s, dt, n in cases]
+    cases += [(256, s, torch.bfloat16, 0, FIT_B) for s in (32, 64, 128, 256)]
+    for c, s, dtype, per_forward, bsz in cases:
         # Quarter steps through a ReLU: zero plateaus and repeated values.
-        x = torch.relu(torch.round(4 * torch.randn(1, c, s, s, device="cuda",
+        x = torch.relu(torch.round(4 * torch.randn(bsz, c, s, s, device="cuda",
                                                    generator=g)) / 4)
         x = x.to(dtype).contiguous(memory_format=torch.channels_last)
-        cot = torch.randn(1, c, s, s, device="cuda", generator=g).to(dtype)
+        cot = torch.randn(bsz, c, s, s, device="cuda", generator=g).to(dtype)
         cot = cot.contiguous(memory_format=torch.channels_last)
         y = maxpool5x5_fwd(x)
         ref = maxpool5x5_plain(x)
         dx = maxpool5x5_bwd(x, y, cot)
         dref = maxpool5x5_bwd_plain(x, ref, cot)
         torch.cuda.synchronize()
-        row = {"c": c, "h": s, "w": s, "dtype": str(dtype),
+        row = {"batch": bsz, "c": c, "h": s, "w": s, "dtype": str(dtype),
                "bit_exact": bool(torch.equal(y, ref)),
                "max_abs_err": (y.float() - ref.float()).abs().max().item(),
                "bwd_bit_exact": bool(torch.equal(dx, dref)),
@@ -320,10 +362,13 @@ def phase_stem_pool(torch) -> dict:
              (64, 512, 512, torch.float32, 0), (64, 96, 320, torch.float32, 0),
              (64, 17, 23, torch.bfloat16, 0), (13, 17, 23, torch.bfloat16, 0),
              (13, 17, 23, torch.float32, 0)]
+    # Phase 9's fit: the step's two pool shapes at B = FIT_B in bf16, untimed.
+    cases = [(c, h, w, dt, n, 1) for c, h, w, dt, n in cases]
+    cases += [(64, 512, 512, torch.bfloat16, 0, FIT_B), (64, 96, 320, torch.bfloat16, 0, FIT_B)]
     rows, tot = [], Counter()
-    for c, h, w, dtype, per_step in cases:
+    for c, h, w, dtype, per_step, bsz in cases:
         # Quarter steps through a ReLU: zero plateaus and repeated values.
-        x = torch.relu(torch.round(4 * torch.randn(1, c, h, w, device="cuda", generator=g)) / 4)
+        x = torch.relu(torch.round(4 * torch.randn(bsz, c, h, w, device="cuda", generator=g)) / 4)
         x = x.to(dtype).contiguous(memory_format=torch.channels_last)
         y = maxpool3x3s2(x)
         cot = torch.randn(y.shape, device="cuda", generator=g).to(dtype)
@@ -331,7 +376,7 @@ def phase_stem_pool(torch) -> dict:
         dx = maxpool3x3s2_bwd(x, y, cot)
         dref = maxpool3x3s2_bwd_plain(x, y, cot)
         torch.cuda.synchronize()
-        row = {"c": c, "h": h, "w": w, "dtype": str(dtype),
+        row = {"batch": bsz, "c": c, "h": h, "w": w, "dtype": str(dtype),
                "bit_exact": bool(torch.equal(dx, dref)),
                "max_abs_err": (dx.float() - dref.float()).abs().max().item(),
                "bwd_nonzero": int((dref != 0).sum().item()), "outputs": y.numel()}
@@ -687,7 +732,11 @@ def phase_reproj(torch) -> dict:
              ((4, 1, 3, 3, HW, HW), f32, "levels", False),
              ((4, 1, 2, 3, HW, HW), f32, "levels", False),
              ((4, 1, 2, 3, HW, HW), f32, "arbitrary", False),
-             ((4, 1, 2, 3, HW, HW), f32, "grid_sample", False)]
+             ((4, 1, 2, 3, HW, HW), f32, "grid_sample", False),
+             # Phase 9's operands: the preset's B=3, fp32 ("auto" is bf16 at
+             # B=1 only).
+             ((4, 3, 2, 3, HW, HW), f32, "levels", False),
+             ((4, 3, 2, 3, HW, HW), f32, "grid_sample", False)]
     rows, tot, f64_ratios, k1_f64 = [], Counter(), {}, {}
     err_f = err_b = 0.0
     for shape, dtype, operands, timed in cases:
@@ -719,8 +768,8 @@ def phase_reproj(torch) -> dict:
         if dtype == f32 and operands != "levels":
             # K1 no farther from the float64 forward than 2x its plain version.
             row.update(_k1_f64_witness(torch, preds, ident, targ, out, ident_l, ref, ref_ident))
-            k1_f64[operands] = {k: row[k] for k in ("k1_err_f64", "k1_plain_err_f64",
-                                                    "k1_over_plain_max")}
+            k1_f64[f"{operands}, B={b_}"] = {k: row[k] for k in (
+                "k1_err_f64", "k1_plain_err_f64", "k1_over_plain_max")}
             if not row["k1_err_f64"] <= 2 * row["k1_plain_err_f64"]:
                 raise AssertionError(f"K1 farther from float64 than its plain version: {row}")
         d, dref = _bwd(preds, targ, cot, code), _reproj_bwd_plain(preds, targ, cot)
@@ -744,7 +793,7 @@ def phase_reproj(torch) -> dict:
             # distance within 2x the plain version's, its RMS distance
             # within 1.25x.
             row.update(_k2_f64_witness(torch, preds, targ, cot, d, dref))
-            f64_ratios[f"{operands}, F={f_}"] = {
+            f64_ratios[f"{operands}, B={b_}, F={f_}"] = {
                 k: row[k] for k in ("k2_over_plain_max", "k2_over_plain_rms")}
             if not (row["k2_err_f64"] <= 2 * row["plain_err_f64"]
                     and row["k2_rms_f64"] <= 1.25 * row["plain_rms_f64"]):
@@ -816,84 +865,100 @@ def phase_conv_bwd(torch, sites) -> dict:
     rows, tot = [], Counter()
     err_d = err_w = 0.0
     ops_t = bytes_t = 0.0
-    for (c, o, h, w, pad), count in sorted(shapes.items()):
-        for dtype in (torch.bfloat16, torch.float32):
-            hin, win = h + 2 - 2 * pad, w + 2 - 2 * pad
-            x = torch.randn(1, c, hin, win, device="cuda", generator=g).to(dtype)
-            x = x.contiguous(memory_format=torch.channels_last)
-            wt = (torch.randn(o, c, 3, 3, device="cuda", generator=g) / math.sqrt(9 * c)).to(dtype)
-            gy = torch.randn(1, o, h, w, device="cuda", generator=g).to(dtype)
-            gy = gy.contiguous(memory_format=torch.channels_last)
-            wflip = wt.flip(2, 3).transpose(0, 1)
-            dx = _conv(gy, wflip, None, 2 - pad, "conv3x3_dgrad")
-            dx_ref = conv3x3_plain(gy, wflip, None, 2 - pad)
-            dw = conv3x3_wgrad(x, gy, pad)
-            dw_again = conv3x3_wgrad(x, gy, pad)
-            dw_ref = conv3x3_wgrad_plain(x, gy, pad)
-            torch.cuda.synchronize()
-            if not torch.equal(dw.view(torch.int32), dw_again.view(torch.int32)):
-                raise AssertionError(f"K4 differs between two runs at {(c, o, h, w, pad, dtype)}")
-            ed = (dx.float() - dx_ref.float()).abs().max().item()
-            sd = max(1.0, dx_ref.float().abs().max().item())
-            ew = (dw - dw_ref).abs().max().item()
-            sw = dw_ref.abs().max().item()
-            # dgrad: as K3's forward (fp32 order; one bf16 rounding). K4: fp32
-            # sums of 9C x O over M pixels in another order, both dtypes.
-            row = {"c_in": c, "c_out": o, "h": h, "w": w, "pad": pad, "dgrad_pad": 2 - pad,
-                   "dtype": str(dtype), "dgrad_max_abs_err": ed,
-                   "dgrad_tol": (1e-4 if dtype == torch.float32 else 1e-2) * sd,
-                   "wgrad_max_abs_err": ew, "wgrad_tol": 1e-4 * sw,
-                   "dx_shape": list(dx.shape)}
-            if not (ed <= row["dgrad_tol"] and tuple(dx.shape) == tuple(x.shape)):
-                raise AssertionError(f"K3 data-grad disagrees with its plain version: {row}")
-            if not (ew <= row["wgrad_tol"] and tuple(dw.shape) == (o, c, 3, 3)):
-                raise AssertionError(f"K4 disagrees with its plain version: {row}")
-            err_d, err_w = max(err_d, ed), max(err_w, ew)
-            if dtype == torch.float32:
-                # Distance to float64 (cuDNN in fp64) of the kernels and of
-                # cuDNN in fp32, at the same inputs.
-                x64, w64, g64 = x.double(), wt.double(), gy.double()
-                dx64 = grad.conv2d_input(x.shape, w64, g64, padding=pad)
-                dw64 = grad.conv2d_weight(x64, wt.shape, g64, padding=pad)
-                row.update(
-                    dgrad_err_f64=(dx.double() - dx64).abs().max().item(),
-                    dgrad_library_err_f64=(grad.conv2d_input(x.shape, wt, gy, padding=pad)
-                                           .double() - dx64).abs().max().item(),
-                    wgrad_err_f64=(dw.double() - dw64).abs().max().item(),
-                    wgrad_library_err_f64=(grad.conv2d_weight(x, wt.shape, gy, padding=pad)
-                                           .double() - dw64).abs().max().item())
-                del x64, w64, g64, dx64, dw64
-            if dtype == torch.bfloat16:
-                item = x.element_size()
-                n_ops = 2.0 * h * w * o * 9 * c
-                bd, byd = bound_ms((o * h * w + o * c * 9 + c * hin * win) * item, n_ops, PEAK_BF16)
-                bw, byw = bound_ms((c * hin * win + o * h * w) * item + 4 * o * c * 9, n_ops,
-                                   PEAK_BF16)
-                # In the step K4 reads the operand the forward made for K3 (a
-                # copy only for the 513-channel concat, timed in phase 2).
-                xh = _tma_operand(x)
-                row.update(
-                    sites_per_step=count, dgrad_bound_ms=bd, wgrad_bound_ms=bw,
-                    dgrad_ms=time_ms(torch, lambda: _conv(gy, wflip, None, 2 - pad, "conv3x3_dgrad"), reps=10),
-                    dgrad_plain_ms=time_ms(torch, lambda: conv3x3_plain(gy, wflip, None, 2 - pad), reps=5),
-                    dgrad_library_ms=time_ms(torch, lambda: grad.conv2d_input(x.shape, wt, gy, padding=pad), reps=10),
-                    wgrad_ms=time_ms(torch, lambda: _wgrad_bf16(xh, gy, pad), reps=10),
-                    wgrad_plain_ms=time_ms(torch, lambda: conv3x3_wgrad_plain(x, gy, pad), reps=5),
-                    wgrad_library_ms=time_ms(torch, lambda: grad.conv2d_weight(x, wt.shape, gy, padding=pad), reps=10))
-                for k in ("dgrad_", "wgrad_"):
-                    row[k + "bound_share"] = row[k + "bound_ms"] / row[k + "ms"]
-                    row[k + "library_ratio"] = row[k + "ms"] / row[k + "library_ms"]
-                row.update(
-                    dgrad_enqueue_ms=enqueue_ms(torch, lambda: _conv(gy, wflip, None, 2 - pad,
-                                                                 "conv3x3_dgrad")),
-                    wgrad_enqueue_ms=enqueue_ms(torch, lambda: _wgrad_bf16(xh, gy, pad)))
-                for k in ("ms", "plain_ms", "library_ms", "bound_ms"):
-                    tot["dgrad_" + k] += count * row["dgrad_" + k]
-                    tot["wgrad_" + k] += count * row["wgrad_" + k]
-                ops_t += count * n_ops / PEAK_BF16
-                bytes_t += count * (c * hin * win + o * h * w) * item / HBM_BYTES_S
+    # bf16 and fp32 at B=1 (timed in bf16), then bf16 at phase 9's B = FIT_B
+    # (K4's pixel split depends on B*H*W), untimed.
+    cases = [(shape, dtype, 1) for shape in sorted(shapes)
+             for dtype in (torch.bfloat16, torch.float32)]
+    cases += [(shape, torch.bfloat16, FIT_B) for shape in sorted(shapes)]
+    for (c, o, h, w, pad), dtype, bsz in cases:
+        count = shapes[(c, o, h, w, pad)]
+        hin, win = h + 2 - 2 * pad, w + 2 - 2 * pad
+        x = torch.randn(bsz, c, hin, win, device="cuda", generator=g).to(dtype)
+        x = x.contiguous(memory_format=torch.channels_last)
+        wt = (torch.randn(o, c, 3, 3, device="cuda", generator=g) / math.sqrt(9 * c)).to(dtype)
+        gy = torch.randn(bsz, o, h, w, device="cuda", generator=g).to(dtype)
+        gy = gy.contiguous(memory_format=torch.channels_last)
+        wflip = wt.flip(2, 3).transpose(0, 1)
+        dx = _conv(gy, wflip, None, 2 - pad, "conv3x3_dgrad")
+        dx_ref = conv3x3_plain(gy, wflip, None, 2 - pad)
+        dw = conv3x3_wgrad(x, gy, pad)
+        dw_again = conv3x3_wgrad(x, gy, pad)
+        dw_ref = conv3x3_wgrad_plain(x, gy, pad)
+        torch.cuda.synchronize()
+        if not torch.equal(dw.view(torch.int32), dw_again.view(torch.int32)):
+            raise AssertionError(f"K4 differs between two runs at {(c, o, h, w, pad, dtype)}")
+        ed = (dx.float() - dx_ref.float()).abs().max().item()
+        sd = max(1.0, dx_ref.float().abs().max().item())
+        ew = (dw - dw_ref).abs().max().item()
+        sw = dw_ref.abs().max().item()
+        # dgrad: as K3's forward (fp32 order; one bf16 rounding). K4: fp32
+        # sums of 9C x O over M pixels in another order, both dtypes.
+        row = {"batch": bsz, "c_in": c, "c_out": o, "h": h, "w": w, "pad": pad,
+               "dgrad_pad": 2 - pad,
+               "dtype": str(dtype), "dgrad_max_abs_err": ed,
+               "dgrad_tol": (1e-4 if dtype == torch.float32 else 1e-2) * sd,
+               "wgrad_max_abs_err": ew, "wgrad_tol": 1e-4 * sw,
+               "dx_shape": list(dx.shape)}
+        if not (ed <= row["dgrad_tol"] and tuple(dx.shape) == tuple(x.shape)):
+            raise AssertionError(f"K3 data-grad disagrees with its plain version: {row}")
+        if not (ew <= row["wgrad_tol"] and tuple(dw.shape) == (o, c, 3, 3)):
+            raise AssertionError(f"K4 disagrees with its plain version: {row}")
+        err_d, err_w = max(err_d, ed), max(err_w, ew)
+        if bsz != 1:
+            # K4's and the plain version's distances to float64 (cuDNN in
+            # fp64 on the same bf16 inputs): which of the two moves with B.
+            dw64 = grad.conv2d_weight(x.double(), wt.shape, gy.double(), padding=pad)
+            row.update(wgrad_err_f64=(dw.double() - dw64).abs().max().item(),
+                       wgrad_plain_err_f64=(dw_ref.double() - dw64).abs().max().item())
+            del dw64
             rows.append(row)
             log(f"K3-dgrad/K4 {row}")
+            continue
+        if dtype == torch.float32:
+            # Distance to float64 (cuDNN in fp64) of the kernels and of
+            # cuDNN in fp32, at the same inputs.
+            x64, w64, g64 = x.double(), wt.double(), gy.double()
+            dx64 = grad.conv2d_input(x.shape, w64, g64, padding=pad)
+            dw64 = grad.conv2d_weight(x64, wt.shape, g64, padding=pad)
+            row.update(
+                dgrad_err_f64=(dx.double() - dx64).abs().max().item(),
+                dgrad_library_err_f64=(grad.conv2d_input(x.shape, wt, gy, padding=pad)
+                                       .double() - dx64).abs().max().item(),
+                wgrad_err_f64=(dw.double() - dw64).abs().max().item(),
+                wgrad_library_err_f64=(grad.conv2d_weight(x, wt.shape, gy, padding=pad)
+                                       .double() - dw64).abs().max().item())
+            del x64, w64, g64, dx64, dw64
+        if dtype == torch.bfloat16:
+            item = x.element_size()
+            n_ops = 2.0 * h * w * o * 9 * c
+            bd, byd = bound_ms((o * h * w + o * c * 9 + c * hin * win) * item, n_ops, PEAK_BF16)
+            bw, byw = bound_ms((c * hin * win + o * h * w) * item + 4 * o * c * 9, n_ops,
+                               PEAK_BF16)
+            # In the step K4 reads the operand the forward made for K3 (a
+            # copy only for the 513-channel concat, timed in phase 2).
+            xh = _tma_operand(x)
+            row.update(
+                sites_per_step=count, dgrad_bound_ms=bd, wgrad_bound_ms=bw,
+                dgrad_ms=time_ms(torch, lambda: _conv(gy, wflip, None, 2 - pad, "conv3x3_dgrad"), reps=10),
+                dgrad_plain_ms=time_ms(torch, lambda: conv3x3_plain(gy, wflip, None, 2 - pad), reps=5),
+                dgrad_library_ms=time_ms(torch, lambda: grad.conv2d_input(x.shape, wt, gy, padding=pad), reps=10),
+                wgrad_ms=time_ms(torch, lambda: _wgrad_bf16(xh, gy, pad), reps=10),
+                wgrad_plain_ms=time_ms(torch, lambda: conv3x3_wgrad_plain(x, gy, pad), reps=5),
+                wgrad_library_ms=time_ms(torch, lambda: grad.conv2d_weight(x, wt.shape, gy, padding=pad), reps=10))
+            for k in ("dgrad_", "wgrad_"):
+                row[k + "bound_share"] = row[k + "bound_ms"] / row[k + "ms"]
+                row[k + "library_ratio"] = row[k + "ms"] / row[k + "library_ms"]
+            row.update(
+                dgrad_enqueue_ms=enqueue_ms(torch, lambda: _conv(gy, wflip, None, 2 - pad,
+                                                             "conv3x3_dgrad")),
+                wgrad_enqueue_ms=enqueue_ms(torch, lambda: _wgrad_bf16(xh, gy, pad)))
+            for k in ("ms", "plain_ms", "library_ms", "bound_ms"):
+                tot["dgrad_" + k] += count * row["dgrad_" + k]
+                tot["wgrad_" + k] += count * row["wgrad_" + k]
+            ops_t += count * n_ops / PEAK_BF16
+            bytes_t += count * (c * hin * win + o * h * w) * item / HBM_BYTES_S
+        rows.append(row)
+        log(f"K3-dgrad/K4 {row}")
     return {"rows": rows, "dgrad_max_abs_err": err_d, "wgrad_max_abs_err": err_w,
             "per_step": dict(tot), "bound_by": "bytes" if bytes_t >= ops_t else "operations"}
 
@@ -1085,6 +1150,206 @@ def phase_train(torch) -> dict:
     return res
 
 
+# Phase 9's loss keys: the JAX Trainer's train payload for the flagship
+# preset (type static, four scales) besides mode/epoch/iter.
+FIT_LOSS_KEYS = ({"topview_loss", "transform_topview_loss", "transform_loss", "layout_loss",
+                  "loss", "grad_norm"}
+                 | {f"{k}/{s}" for k in ("min_reconstruct_loss", "scale_loss", "smooth_loss")
+                    for s in range(4)})
+FIT_EPOCHS = 2
+
+
+class _RecordingLoader:
+    """The loader as the Trainer sees it, recording each epoch's batches by
+    a fingerprint of their samples (a few pixels of frame 0)."""
+
+    def __init__(self, inner):
+        self.inner, self.epochs = inner, []
+
+    def set_epoch(self, epoch):
+        self.inner.set_epoch(epoch)
+
+    def __len__(self):
+        return len(self.inner)
+
+    def __iter__(self):
+        self.epochs.append([])
+        for batch in self.inner:
+            self.epochs[-1] += [tuple(c[0, 0, 0, :4].tolist()) for c in batch["color"]]
+            yield batch
+
+
+class _RecordingStep:
+    """The Trainer's step, keeping each step's metrics on the card (no
+    synchronisation); every other attribute is the step's."""
+
+    def __init__(self, step):
+        self.step, self.metrics = step, []
+
+    def __call__(self, batch):
+        m = self.step(batch)
+        self.metrics.append(m)
+        return m
+
+    def __getattr__(self, name):
+        return getattr(self.step, name)
+
+
+def phase_fit(torch, train_sites) -> dict:
+    """Phase 9: the kitti_odom_1024 preset trained through the port's entry
+    points -- Config.fromfile, build_model, get_dataset, DataLoader and
+    Trainer.fit -- on simulated scenes (the one dataset that needs no files),
+    at the preset's model: 1024^2, occ 256, B = imgs_per_gpu = 3, remat,
+    road branch, frames (0, -1, 1), four scales, loss_sum 3, Adam 1e-4, clip
+    35, with compute_dtype bfloat16 (the preset leaves it at float32; bf16
+    is bench.py's flagship). The scenes are rendered once before the fit
+    (set-up), so the fit reads them from the dataset's cache."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from jperceiver_tpu_torch.config import Config
+    from jperceiver_tpu_torch.data import DataLoader, get_dataset
+    from jperceiver_tpu_torch.engine import Trainer
+    from jperceiver_tpu_torch.models import build_model
+    from jperceiver_tpu_torch.models.jperceiver import conv3x3_sites
+    from jperceiver_tpu_torch.ops import cuda as kernels
+
+    cfg = Config.fromfile(os.path.join(ROOT, "jperceiver_tpu_torch", "config", "presets",
+                                       "kitti_odom_1024.py"))
+    batch_size = int(cfg.imgs_per_gpu)
+    steps = 4
+    cfg.merge_from_dict({"data.name": "simulated", "data.n_scenes": steps * batch_size,
+                         "model.compute_dtype": "bfloat16"})
+    mcfg = cfg.model
+    torch.manual_seed(0)
+    model = build_model(mcfg)
+    ds = get_dataset(cfg.data, training=True, with_sdf=int(mcfg.loss_sum) >= 2,
+                     num_class=mcfg.num_class)
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(8) as ex:
+        scenes = list(ex.map(ds.__getitem__, range(len(ds))))
+    render_s = time.perf_counter() - t0
+    finger = {tuple(s["color"][0, 0, 0, :4].tolist()): i for i, s in enumerate(scenes)}
+    if len(finger) != len(ds):
+        raise AssertionError("simulated scenes share a fingerprint")
+    loader = _RecordingLoader(DataLoader(ds, batch_size=batch_size, shuffle=True,
+                                         num_workers=4))
+    if len(loader) != steps:
+        raise AssertionError(f"loader length {len(loader)}, expected {steps}")
+    logs, ckpt, evals = [], [], []
+    trainer = Trainer(model, cfg, loader, steps,
+                      checkpoint_fn=lambda st, epoch: ckpt.append((epoch, st.iteration)),
+                      eval_hook=lambda st, epoch: evals.append(epoch) or {
+                          "iteration": float(st.iteration)},
+                      log_fn=logs.append, log_interval=steps)
+    rec = trainer.train_step = _RecordingStep(trainer.train_step)
+    # The optimizer is the preset's: Adam 1e-4, clip 35, the LR step at
+    # epoch 50.
+    res_opt = {"type": type(rec.optimizer).__name__, "clip": rec.clip,
+               "lr": [rec.schedule(i) for i in (0, 50 * steps - 1, 50 * steps)]}
+    if not (res_opt["type"] == "Adam" and res_opt["clip"] == 35.0
+            and res_opt["lr"][:2] == [1e-4, 1e-4] and math.isclose(res_opt["lr"][2], 1e-5)):
+        raise AssertionError(f"fit optimizer {res_opt}, expected the preset's")
+    # Its K3 sites are the step's, which phases 2 and 7 hold at B = FIT_B.
+    fit_sites = conv3x3_sites(mcfg.height, mcfg.width, mcfg.occ_map_size,
+                              branches=model.branches)
+    if fit_sites != train_sites or batch_size != FIT_B:
+        raise AssertionError("the fit's K3 sites or batch are not those phases 2 and 7 hold")
+    bn = model.DepthEncoder.encoder.bn1
+    stats0 = (bn.running_mean.clone(), bn.running_var.clone())
+
+    # The main path: counts set to 0 just before the fit, read just after.
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    trainer.fit(FIT_EPOCHS)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    launches = kernels.launch_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    res = {"render_s": render_s, "fit_s": fit_s, "launches": launches,
+           "peak_memory_gb": peak_gb, "batch": batch_size, "steps_per_epoch": steps,
+           "remat_trunks": sorted(model.remat_trunks), "checkpoint_calls": ckpt,
+           "optimizer": res_opt, "payloads": logs}
+
+    # Payloads: the JAX Trainer's keys, one epoch_time an epoch.
+    modes = [(p["mode"], p["epoch"]) for p in logs]
+    want_modes = [m for e in range(1, FIT_EPOCHS + 1)
+                  for m in (("train", e), ("val", e), ("epoch_time", e))]
+    if modes != want_modes:
+        raise AssertionError(f"fit payloads {modes}, expected {want_modes}")
+    for p in logs:
+        keys = set(p) - {"mode", "epoch"}
+        want = {"train": FIT_LOSS_KEYS | {"iter"}, "val": {"iteration"},
+                "epoch_time": {"seconds"}}[p["mode"]]
+        if keys != want:
+            raise AssertionError(f"{p['mode']} payload keys {sorted(keys ^ want)} differ")
+    if ckpt != [(e, e * steps) for e in range(1, FIT_EPOCHS + 1)] or evals != [1, 2]:
+        raise AssertionError(f"callbacks: checkpoint {ckpt}, eval {evals}")
+
+    # Sample order: epoch 2's differs from epoch 1's and is set_epoch(1)'s.
+    orders = [[finger[f] for f in ep] for ep in loader.epochs]
+    ref = DataLoader(ds, batch_size=batch_size, shuffle=True)
+    ref.set_epoch(1)
+    want_order = ref._epoch_indices()[0][:steps * batch_size].tolist()
+    res["sample_orders"] = orders
+    if not (orders[1] != orders[0] and orders[1] == want_order and sorted(orders[0]) ==
+            list(range(len(ds)))):
+        raise AssertionError(f"sample orders {orders}, epoch 2 expected {want_order}")
+
+    # Training moves: finite losses, BatchNorm statistics moving.
+    losses = [{k: float(v) for k, v in m.items()} for m in rec.metrics]
+    moved = max((bn.running_mean - stats0[0]).abs().max().item(),
+                (bn.running_var - stats0[1]).abs().max().item())
+    res["losses"] = [m["loss"] for m in losses]
+    res["grad_norms"] = [m["grad_norm"] for m in losses]  # before the clip at 35
+    res["bn_running_stat_change"] = moved
+    if not (len(losses) == FIT_EPOCHS * steps
+            and all(math.isfinite(v) for m in losses for v in m.values()) and moved > 0):
+        raise AssertionError(f"fit: losses {losses}, BN change {moved}")
+
+    # Rates: frames/s per epoch, the loop's wait on the prefetch queue.
+    secs = [p["seconds"] for p in logs if p["mode"] == "epoch_time"]
+    res["epochs"] = [{"seconds": t, "frames_per_s": steps * batch_size / t,
+                      "data_wait_s": sum(w), "data_wait_share": sum(w) / t,
+                      "data_wait_first_batch_s": w[0], "data_wait_steps_s": w}
+                     for t, w in zip(secs, trainer.data_wait_s)]
+    res["frames_per_s"] = FIT_EPOCHS * steps * batch_size / fit_s
+    # Past start-up: the last epoch (epoch 1 holds the first B=3 warm-up)
+    # without its wait for the first batch (the prefetch thread's start),
+    # the steps that a longer epoch repeats.
+    last = res["epochs"][-1]
+    res["steady_frames_per_s"] = steps * batch_size / (last["seconds"]
+                                                       - last["data_wait_first_batch_s"])
+    res["steady_data_wait_share"] = ((last["data_wait_s"] - last["data_wait_first_batch_s"])
+                                     / (last["seconds"] - last["data_wait_first_batch_s"]))
+
+    # One more epoch under the profiler: kernels a step, the card's idle share.
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        trainer.fit(FIT_EPOCHS + 1, start_epoch=FIT_EPOCHS)
+        torch.cuda.synchronize()
+    dev = [e for e in prof.events() if e.device_type.name == "CUDA"]
+    names = Counter(e.name for e in dev)
+    busy_ms = sum(e.time_range.elapsed_us() for e in dev) / 1e3
+    span_ms = (max(e.time_range.end for e in dev) - min(e.time_range.start for e in dev)) / 1e3
+
+    def count(sub):
+        return sum(n for k, n in names.items() if sub in k) / steps
+
+    res["profiler_per_step"] = {
+        "k1": count("reproj_fwd"), "k2": count("reproj_bwd"), "k3": count("conv3x3_bf16"),
+        "k4": count("wgrad_bf16"), "k5": count("maxpool5x5_nhwc"),
+        "k5_bwd": count("maxpool5x5_bwd_nhwc"), "stem_pool_bwd": count("maxpool3x3s2_bwd"),
+        "device_events": sum(names.values()) / steps}
+    res["profiled_epoch"] = {"device_busy_ms": busy_ms, "device_span_ms": span_ms,
+                             "idle_share": 1 - busy_ms / span_ms,
+                             "data_wait_s": sum(trainer.data_wait_s[-1])}
+    log(f"fit: {json.dumps({k: v for k, v in res.items() if k != 'payloads'})}")
+    return res
+
+
 def main() -> int:
     import torch
 
@@ -1130,6 +1395,7 @@ def main() -> int:
     rp = phase_reproj(torch)
     cb = phase_conv_bwd(torch, train_sites)
     tr = phase_train(torch)
+    ft = phase_fit(torch, train_sites)
 
     launches = ev["launches"]
     if launches != {k: 0 for k in launches} | {"conv3x3": n_k3, "maxpool5x5": 16}:
@@ -1152,6 +1418,25 @@ def main() -> int:
             1, 1, 2 * n_k3_train, n_k3_train, 16, 16, 4):
         raise AssertionError(f"train profiler kernel counts {tp}")
 
+    # Phase 9 under remat: every K3 site and CRP pool of a checkpointed
+    # trunk runs its forward again in the backward.
+    trunks = set(ft["remat_trunks"])
+    n_k3_re = sum(s["k3"] for s in train_sites if s["module"] in trunks)
+    n_k5_re = 16 if "DepthDecoder" in trunks else 0
+    n_fit = FIT_EPOCHS * ft["steps_per_epoch"]
+    per_step = {"conv3x3": n_k3_train + n_k3_re, "conv3x3_dgrad": n_k3_train,
+                "conv3x3_wgrad": n_k3_train, "maxpool5x5": 16 + n_k5_re,
+                "maxpool5x5_bwd": 16, "maxpool5x5_bwd_cot_copy": 0, "maxpool3x3s2_bwd": 4,
+                "maxpool3x3s2_bwd_cot_copy": 0, "reproj_fwd": 1, "reproj_bwd": 1}
+    ft["expected_launches_per_step"] = per_step
+    if ft["launches"] != {k: v * n_fit for k, v in per_step.items()}:
+        raise AssertionError(f"fit main-path launches {ft['launches']}, expected "
+                             f"{n_fit} x {per_step}")
+    fp = ft["profiler_per_step"]
+    if (fp["k1"], fp["k2"], fp["k3"], fp["k4"], fp["k5"], fp["k5_bwd"], fp["stem_pool_bwd"]) != (
+            1, 1, per_step["conv3x3"] + n_k3_train, n_k3_train, per_step["maxpool5x5"], 16, 4):
+        raise AssertionError(f"fit profiler kernel counts a step {fp}, expected {per_step}")
+
     def entry(kid, name, src, replaces, count, err, per, bound_by):
         lib = per["library_ms"]
         return {"id": kid, "name": name, "route": "cuda", "source": src,
@@ -1161,7 +1446,7 @@ def main() -> int:
                 "bound_share": per["bound_ms"] / per["ms"],
                 "library_ratio": None if lib is None else per["ms"] / lib}
 
-    rps, cbs, tl = rp["per_step"], cb["per_step"], tr["launches"]
+    rps, cbs, tl, fl = rp["per_step"], cb["per_step"], tr["launches"], ft["launches"]
 
     def pick(d, prefix):
         return {k: d[prefix + k] for k in ("ms", "plain_ms", "library_ms", "bound_ms")}
@@ -1193,11 +1478,14 @@ def main() -> int:
                    sp["max_abs_err"], sp["per_step"], sp["bound_by"]),
              max_pool2d_bwd_ms_for_scale=sp["per_step"]["max_pool2d_bwd_ms"]),
     ]}
+    for row in table["kernels"]:  # launches of phase 9's fit, its own main path
+        row["fit_launches"] = fl[{"conv3x3_fwd": "conv3x3", "maxpool5x5_fwd": "maxpool5x5"}
+                                 .get(row["name"], row["name"])]
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
     with open(os.path.join(ROOT, "chiprun_out", "chip_smoke.json"), "w") as f:
         json.dump({"card": card, "build_s": build_s, "ptxas": ptxas, "k3_sites": n_k3,
                    "k3": k3, "k5": k5, "stem_pool": sp, "eval": ev, "stream": st, "reproj": rp,
-                   "conv_bwd": cb, "train": tr,
+                   "conv_bwd": cb, "train": tr, "fit": ft,
                    "seconds": time.perf_counter() - t_start, "table": table},
                   f, indent=1)
     print(json.dumps(table), flush=True)

@@ -58,7 +58,9 @@ def _warped_frames_all(outputs, batch, scales, frame_ids, height, width,
         disp = resize_bilinear(outputs[f"disp/{scale}"], height, width)
         _, depth = disp_to_depth(disp, min_depth, max_depth)
         cam_points = backproject(depth, batch["inv_K"])
-        grids.append({f: project(cam_points, batch["K"], outputs[f"cam_T_cam/{f}"],
+        # The stereo frame is warped by the rig's fixed baseline, not a pose.
+        grids.append({f: project(cam_points, batch["K"],
+                                 batch["stereo_T"] if f == "s" else outputs[f"cam_T_cam/{f}"],
                                  height, width) for f in frame_ids[1:]})
     return {f: grid_sample_multi(batch["color"][:, i],
                                  torch.stack([g[f] for g in grids], 1), "border")

@@ -2,5 +2,6 @@
 
 from .common import set_kernels
 from .jperceiver import JPerceiver
+from .registry import MODELS, build_model, register
 
-__all__ = ["JPerceiver", "set_kernels"]
+__all__ = ["JPerceiver", "MODELS", "build_model", "register", "set_kernels"]

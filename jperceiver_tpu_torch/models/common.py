@@ -11,6 +11,8 @@ functions as the plain forms here.
 
 from __future__ import annotations
 
+import contextlib
+
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
@@ -29,8 +31,13 @@ class BatchNorm2d(nn.BatchNorm2d):
     normalize the input and update the running statistics with torch
     momentum 0.1 (flax 0.9); in eval the running statistics normalize it.
     Either way y = (x - mean) * (rsqrt(var + eps) * scale) + bias in fp32,
-    returned in the input dtype.
+    returned in the input dtype. While `update_stats` is False (a
+    recompute of a checkpointed trunk, `frozen_running_stats`), training
+    normalizes by the batch statistics and leaves the running ones as they
+    are.
     """
+
+    update_stats = True
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         xf = x.to(torch.promote_types(x.dtype, torch.float32))
@@ -38,16 +45,34 @@ class BatchNorm2d(nn.BatchNorm2d):
             mean = xf.mean((0, 2, 3))
             var = torch.maximum((xf * xf).mean((0, 2, 3)) - mean * mean,
                                 mean.new_zeros(()))
-            with torch.no_grad():
-                m = self.momentum
-                self.running_mean.mul_(1.0 - m).add_(mean, alpha=m)
-                self.running_var.mul_(1.0 - m).add_(var, alpha=m)
-                self.num_batches_tracked.add_(1)
+            if self.update_stats:
+                self._update_running(mean.detach(), var.detach())
         else:
             mean, var = self.running_mean, self.running_var
         mul = torch.rsqrt(var + self.eps) * self.weight
         y = (xf - mean[:, None, None]) * mul[:, None, None] + self.bias[:, None, None]
         return y.to(x.dtype)
+
+    @torch.no_grad()
+    def _update_running(self, mean: torch.Tensor, var: torch.Tensor) -> None:
+        m = self.momentum
+        self.running_mean.mul_(1.0 - m).add_(mean, alpha=m)
+        self.running_var.mul_(1.0 - m).add_(var, alpha=m)
+        self.num_batches_tracked.add_(1)
+
+
+@contextlib.contextmanager
+def frozen_running_stats(module: nn.Module):
+    """Every `BatchNorm2d` of `module` leaves its running statistics as
+    they are inside the block."""
+    bns = [m for m in module.modules() if isinstance(m, BatchNorm2d)]
+    for m in bns:
+        m.update_stats = False
+    try:
+        yield
+    finally:
+        for m in bns:
+            del m.update_stats
 
 
 def dropout(x: torch.Tensor, rate: float,

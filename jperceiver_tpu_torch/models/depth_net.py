@@ -49,10 +49,20 @@ class DepthDecoder(nn.Module):
 
     def forward(self, feats: list[torch.Tensor],
                 generator: torch.Generator | None = None) -> dict[str, torch.Tensor]:
+        return self.decode(self.drop(feats, generator))
+
+    def drop(self, feats: list[torch.Tensor],
+             generator: torch.Generator | None = None) -> list[torch.Tensor]:
+        """The training dropout of l4 and l3, drawn from `generator`. It
+        is kept apart from `decode` so that a checkpointed decoder replays
+        the same masks: they are drawn once, before the checkpointed part."""
         if self.training and self.dropout_rate:
             feats = list(feats)
             for i in (4, 3):
                 feats[i] = dropout(feats[i], self.dropout_rate, generator)
+        return feats
+
+    def decode(self, feats: list[torch.Tensor]) -> dict[str, torch.Tensor]:
         out = {}
         x = disp = None
         for i in (4, 3, 2, 1):

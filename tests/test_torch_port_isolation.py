@@ -27,6 +27,17 @@ def test_port_files_found():
     assert len(FILES) > 20
 
 
+@pytest.mark.parametrize("module", [
+    "config/config.py", "config/families.py", "config/presets/kitti_odom_1024.py",
+    "data/transforms.py", "data/calib.py", "data/velodyne.py", "data/kitti.py",
+    "data/argoverse.py", "data/simulated.py", "data/splits.py", "data/loader.py",
+    "engine/env.py", "engine/logger.py", "engine/trainer.py", "models/registry.py"])
+def test_config_data_engine_modules_checked(module):
+    """The config, data and engine modules, which copy JAX-package modules
+    that import no JAX, are among the files checked."""
+    assert ROOT / "jperceiver_tpu_torch" / module in FILES
+
+
 @pytest.mark.parametrize("path", FILES, ids=lambda p: str(p.relative_to(ROOT)))
 def test_no_jax_imports(path):
     assert not (_imported_roots(path) & FORBIDDEN), path
