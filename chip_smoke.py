@@ -39,7 +39,8 @@ Phases, each of which raises on failure:
      plain versions at every K3 site shape of the step, bf16 and fp32,
      timed beside cuDNN's conv2d_input / conv2d_weight, with each site's
      share of its bound; K4 run twice and held bit for bit; and bf16 at
-     phase 9's B=3, untimed;
+     phase 9's B=3 (K4 also against float64: within 2x the plain version's
+     distance at every site) and K4 at 513 -> 256 @ 256^2 at B=8, untimed;
   8. the flagship training step at 1024^2 (bench.py's configuration: road
      branch, B=1, Adam, clip 35), random weights from a seed: fp32 with the
      kernels on against off, both against the step in float64 (losses and
@@ -61,7 +62,24 @@ Phases, each of which raises on failure:
      a step, from a profiler trace of a third epoch, peak memory,
      frames/s (whole fit, and past start-up: the last epoch without its
      wait for the first batch), the loop's wait on the prefetch queue and
-     the card's idle share.
+     the card's idle share;
+ 10. the workflow around the fit, through the port's tools at the same
+     preset: `tools/train.py` on a config file written from it (2 epochs of
+     4 steps, validation and a checkpoint each epoch: the starting state's
+     checkpoint and one an epoch, the
+     train/val/epoch_time payloads, finite val metrics over every
+     validation sample), `--resume_from` to a third epoch (the step holds
+     the saved model, optimizer state and generator bit for bit, iteration
+     8, epoch 3's checkpoint written), `fit_resilient` after a loader's
+     RuntimeError in epoch 2 (one restart, from the epoch-1 checkpoint, to
+     iteration 8; a TypeError raised at once), `tools/eval_depth.py` on the
+     epoch-2 checkpoint (the hook's depth row within 1e-6 relative) and
+     `tools/draw_odometry.py` over a 110-frame drive (110 pose rows,
+     orthonormal rotations, a finite 100 m segment error; the plot only
+     where matplotlib is installed); each stage's kernel launches from the
+     counters (the training steps at phase 9's counts a step, each eval
+     forward at its K3 sites and 16 CRP pools), its seconds and peak
+     memory, the checkpoint's size and save and restore times.
 
 Prints the card line, a JSON line describing every kernel, and last the
 device line. Full results go to chiprun_out/chip_smoke.json. Exits non-zero
@@ -866,10 +884,12 @@ def phase_conv_bwd(torch, sites) -> dict:
     err_d = err_w = 0.0
     ops_t = bytes_t = 0.0
     # bf16 and fp32 at B=1 (timed in bf16), then bf16 at phase 9's B = FIT_B
-    # (K4's pixel split depends on B*H*W), untimed.
+    # (K4's pixel split depends on B*H*W) and the widest site at B = 8, where
+    # a split sums the most tiles, untimed.
     cases = [(shape, dtype, 1) for shape in sorted(shapes)
              for dtype in (torch.bfloat16, torch.float32)]
     cases += [(shape, torch.bfloat16, FIT_B) for shape in sorted(shapes)]
+    cases.append((max(shapes), torch.bfloat16, 8))
     for (c, o, h, w, pad), dtype, bsz in cases:
         count = shapes[(c, o, h, w, pad)]
         hin, win = h + 2 - 2 * pad, w + 2 - 2 * pad
@@ -910,9 +930,17 @@ def phase_conv_bwd(torch, sites) -> dict:
             dw64 = grad.conv2d_weight(x.double(), wt.shape, gy.double(), padding=pad)
             row.update(wgrad_err_f64=(dw.double() - dw64).abs().max().item(),
                        wgrad_plain_err_f64=(dw_ref.double() - dw64).abs().max().item())
+            row["wgrad_f64_over_plain"] = row["wgrad_err_f64"] / row["wgrad_plain_err_f64"]
+            row["wgrad_gate_share"] = ew / row["wgrad_tol"]
             del dw64
             rows.append(row)
             log(f"K3-dgrad/K4 {row}")
+            # K4 sums a split's tiles in its wgmma accumulator only a few at
+            # a time (`k4_plan`), so its distance to float64 stays within 2x
+            # the plain version's at every site of the fit's step.
+            if bsz == FIT_B and not row["wgrad_f64_over_plain"] <= 2.0:
+                raise AssertionError(f"K4 at B={bsz} is {row['wgrad_f64_over_plain']:.2f}x "
+                                     f"the plain version's distance to float64: {row}")
             continue
         if dtype == torch.float32:
             # Distance to float64 (cuDNN in fp64) of the kernels and of
@@ -1350,6 +1378,273 @@ def phase_fit(torch, train_sites) -> dict:
     return res
 
 
+def _write_config(cfg, path: str) -> str:
+    with open(path, "w") as f:
+        f.write("".join(f"{k} = {v!r}\n" for k, v in cfg.to_dict().items()))
+    return path
+
+
+def _same_state(torch, step, ck) -> bool:
+    """Whether a `TrainStep` holds a checkpoint's model, optimizer state
+    (dtypes included), iteration and generator, bit for bit."""
+    def same(a, b):
+        if isinstance(a, torch.Tensor):
+            return (a.dtype == b.dtype and a.shape == b.shape
+                    and torch.equal(a.cpu(), b.cpu()))
+        if isinstance(a, dict):
+            return a.keys() == b.keys() and all(same(a[k], b[k]) for k in a)
+        if isinstance(a, (list, tuple)):
+            return len(a) == len(b) and all(same(x, y) for x, y in zip(a, b))
+        return a == b
+
+    return (same(step.model.state_dict(), ck["state_dict"])
+            and same(step.optimizer.state_dict(), ck["optimizer"])
+            and step.iteration == ck["iteration"]
+            and same(step.generator.get_state(), ck["generator"]))
+
+
+def phase_workflow(torch, train_sites, per_step) -> dict:
+    """Phase 10: the user's workflow through the port's tools, at the
+    kitti_odom_1024 preset as phase 9 trains it (1024^2, occ 256, B = 3,
+    remat, road branch, bf16 compute, simulated scenes):
+      1. `tools/train.py` on a config file written from the preset (2
+         epochs, validation and a checkpoint each epoch, 4 steps an epoch);
+      2. the same CLI resumed (`--resume_from`) to 3 epochs;
+      3. `fit_resilient` restarting after a loader's RuntimeError in epoch
+         2, from the epoch-1 checkpoint (and a TypeError not retried);
+      4. `tools/eval_depth.py` on the epoch-2 checkpoint;
+      5. `tools/draw_odometry.py` on a 110-frame drive rendered at 256^2
+         (the tool resizes the frames to 1024^2).
+    Kernel launches come from the counters."""
+    import glob
+    import importlib.util
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    from jperceiver_tpu_torch.config import Config
+    from jperceiver_tpu_torch.data import loader as loader_mod
+    from jperceiver_tpu_torch.engine import checkpoint as ckpt_mod
+    from jperceiver_tpu_torch.engine import trainer as trainer_mod
+    from jperceiver_tpu_torch.engine.eval_hook import DEPTH_KEYS
+    from jperceiver_tpu_torch.evaluation.trajectory import load_kitti_poses
+    from jperceiver_tpu_torch.ops import cuda as kernels
+    from jperceiver_tpu_torch.tools import draw_odometry, eval_depth
+    from jperceiver_tpu_torch.tools import train as train_cli
+    from jperceiver_tpu_torch.tools.acceptance import render_odometry_sequence
+
+    root = tempfile.mkdtemp(prefix="chip_smoke_")
+    res: dict = {"stages": {}, "launches": {}}
+    steps, epochs = 4, FIT_EPOCHS
+    cfg = Config.fromfile(os.path.join(ROOT, "jperceiver_tpu_torch", "config", "presets",
+                                       "kitti_odom_1024.py"))
+    batch = int(cfg.imgs_per_gpu)
+    cfg.merge_from_dict({"data.name": "simulated", "data.n_scenes": steps * batch,
+                         "data.in_path": os.path.join(root, "seq"),
+                         "model.compute_dtype": "bfloat16", "total_epochs": epochs,
+                         "log_config.interval": steps})
+    if not (cfg.validate and cfg.checkpoint_config.interval == 1 and batch == FIT_B):
+        raise AssertionError("the preset no longer validates and checkpoints every epoch")
+    cfg2 = _write_config(cfg, os.path.join(root, "epochs2.py"))
+    cfg.merge_from_dict({"total_epochs": epochs + 1})
+    cfg3 = _write_config(cfg, os.path.join(root, "epochs3.py"))
+    cfg.merge_from_dict({"total_epochs": epochs, "validate": False})
+    cfg_noval = _write_config(cfg, os.path.join(root, "epochs2_noval.py"))
+    n_k3 = sum(s["k3"] for s in train_sites)  # an eval forward's: road branch, with pose
+
+    # Time checkpoint saves and restores where the CLI makes them.
+    io_s = {"save": [], "restore": []}
+    save0, restore0 = ckpt_mod.save_checkpoint, ckpt_mod.restore_checkpoint
+
+    def timed(fn, key):
+        def run(*a, **k):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*a, **k)
+            torch.cuda.synchronize()
+            io_s[key].append(time.perf_counter() - t0)
+            return out
+        return run
+
+    ckpt_mod.save_checkpoint = timed(save0, "save")
+    ckpt_mod.restore_checkpoint = timed(restore0, "restore")
+
+    def cli(args, what):
+        kernels.reset_launch_counts()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        out = args()
+        torch.cuda.synchronize()
+        res["stages"][what] = {"seconds": time.perf_counter() - t0,
+                               "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9}
+        res["launches"][what] = kernels.launch_counts()
+        return out
+
+    def payloads(work_dir):
+        return [json.loads(line) for f in sorted(glob.glob(os.path.join(work_dir, "*.log.json")))
+                for line in open(f)]
+
+    def expect_launches(what, n_steps, n_forwards):
+        want = {k: v * n_steps for k, v in per_step.items()}
+        want["conv3x3"] += n_k3 * n_forwards
+        # An eval forward runs each CRP pool once; a step runs each backward once.
+        want["maxpool5x5"] += per_step["maxpool5x5_bwd"] * n_forwards
+        if res["launches"][what] != want:
+            raise AssertionError(f"{what}: launches {res['launches'][what]}, expected {want} "
+                                 f"({n_steps} steps, {n_forwards} eval forwards)")
+
+    try:
+        # 1. Train through the CLI.
+        wd1 = os.path.join(root, "run")
+        trainer = cli(lambda: train_cli.main(["--config", cfg2, "--work_dir", wd1, "--seed", "0",
+                                              "--max_steps_per_epoch", str(steps)]), "train")
+        n_val = len(trainer.eval_hook.loader.dataset)
+        logs = payloads(wd1)
+        modes = [(p["mode"], p["epoch"]) for p in logs]
+        want_modes = [m for e in range(1, epochs + 1)
+                      for m in (("train", e), ("val", e), ("epoch_time", e))]
+        val_keys = set(DEPTH_KEYS) | {"road_iou", "road_map", "fps", "n_eval_samples"}
+        vals = [p for p in logs if p["mode"] == "val"]
+        if modes != want_modes or any(set(p) - {"mode", "epoch"} != val_keys for p in vals):
+            raise AssertionError(f"train CLI payloads {logs}")
+        if not all(math.isfinite(v) for p in vals for v in p.values() if not isinstance(v, str)):
+            raise AssertionError(f"val metrics not finite: {vals}")
+        if any(p["n_eval_samples"] != n_val for p in vals):
+            raise AssertionError(f"n_eval_samples {[p['n_eval_samples'] for p in vals]}, "
+                                 f"the validation set holds {n_val}")
+        # fit_resilient saves the state it starts from first, then one an epoch.
+        saved = sorted(os.listdir(os.path.join(wd1, "checkpoints")))
+        if saved != [f"epoch_{e}.pth" for e in range(epochs + 1)]:
+            raise AssertionError(f"checkpoints {saved}")
+        if trainer.train_step.iteration != epochs * steps:
+            raise AssertionError(f"iteration {trainer.train_step.iteration}")
+        expect_launches("train", epochs * steps, epochs * n_val)
+        res.update(val=vals, n_val=n_val, checkpoint_bytes=os.path.getsize(
+            ckpt_mod.checkpoint_path(wd1, epochs)), train_payloads=logs,
+            train_data_wait_s=trainer.data_wait_s)
+        del trainer
+
+        # 2. Resume through the CLI to one more epoch: the step holds the
+        # saved state bit for bit when the loop starts.
+        seen = {}
+        fit0 = trainer_mod.Trainer.fit_resilient
+
+        def fit_checked(self, total, work_dir, start_epoch=0, max_restarts=3):
+            ck = torch.load(ckpt_mod.checkpoint_path(wd1, epochs), map_location="cpu",
+                            weights_only=True)
+            seen.update(start_epoch=start_epoch, iteration=self.train_step.iteration,
+                        same=_same_state(torch, self.train_step, ck),
+                        optimizer_state_dtypes=sorted({
+                            str(v.dtype) for st in ck["optimizer"]["state"].values()
+                            for v in st.values() if isinstance(v, torch.Tensor)}))
+            return fit0(self, total, work_dir, start_epoch, max_restarts)
+
+        trainer_mod.Trainer.fit_resilient = fit_checked
+        wd2 = os.path.join(root, "resumed")
+        try:
+            trainer = cli(lambda: train_cli.main(["--config", cfg3, "--work_dir", wd2,
+                                                  "--resume_from", wd1, "--seed", "0",
+                                                  "--max_steps_per_epoch", str(steps)]), "resume")
+        finally:
+            trainer_mod.Trainer.fit_resilient = fit0
+        if not (seen["start_epoch"] == epochs and seen["iteration"] == epochs * steps
+                and seen["same"]):
+            raise AssertionError(f"resume: {seen}")
+        if not (os.path.isfile(ckpt_mod.checkpoint_path(wd2, epochs + 1))
+                and trainer.train_step.iteration == (epochs + 1) * steps):
+            raise AssertionError("resume: epoch 3's checkpoint or iteration missing")
+        expect_launches("resume", steps, n_val)
+        res["resume"] = seen
+        del trainer
+
+        # 3. fit_resilient: the loader fails once as epoch 2 starts; the run
+        # restores the epoch-1 checkpoint and ends at iteration 8. A
+        # TypeError is raised at once.
+        wd3 = os.path.join(root, "restart")
+        os.makedirs(os.path.join(wd3, "checkpoints"))
+        shutil.copy(ckpt_mod.checkpoint_path(wd1, 1), ckpt_mod.checkpoint_path(wd3, 1))
+        iter0 = loader_mod.DataLoader.__iter__
+        begun = []
+
+        def failing(exc, epoch):
+            def it(self):
+                begun.append(self.epoch)
+                if begun.count(self.epoch) == 1 and self.epoch == epoch:
+                    raise exc("loader failure injected by chip_smoke")
+                return iter0(self)
+            return it
+
+        loader_mod.DataLoader.__iter__ = failing(RuntimeError, 1)
+        try:
+            trainer = cli(lambda: train_cli.main(["--config", cfg_noval, "--work_dir", wd3,
+                                                  "--resume_from", wd3, "--seed", "0",
+                                                  "--max_steps_per_epoch", str(steps)]),
+                          "fit_resilient")
+        finally:
+            loader_mod.DataLoader.__iter__ = iter0
+        restarts = [p for p in payloads(wd3) if p["mode"] == "restart"]
+        if not (begun == [1, 1] and len(restarts) == 1 and restarts[0]["attempt"] == 1
+                and trainer.train_step.iteration == epochs * steps):
+            raise AssertionError(f"fit_resilient: epochs begun {begun}, restarts {restarts}, "
+                                 f"iteration {trainer.train_step.iteration}")
+        expect_launches("fit_resilient", steps, 0)
+        del trainer
+        begun.clear()
+        loader_mod.DataLoader.__iter__ = failing(TypeError, 0)
+        try:
+            train_cli.main(["--config", cfg_noval, "--work_dir", os.path.join(root, "typeerror"),
+                            "--seed", "0", "--max_steps_per_epoch", str(steps)])
+            raise AssertionError("fit_resilient: a TypeError was retried or swallowed")
+        except TypeError:
+            pass
+        finally:
+            loader_mod.DataLoader.__iter__ = iter0
+        if begun != [0] or any(p["mode"] == "restart"
+                               for p in payloads(os.path.join(root, "typeerror"))):
+            raise AssertionError(f"fit_resilient retried a TypeError: epochs begun {begun}")
+        res["fit_resilient"] = {"restart": restarts[0]}
+
+        # 4. eval_depth on the epoch-2 checkpoint: the hook's depth row.
+        row = cli(lambda: eval_depth.main(["--config", cfg2, "--checkpoint", wd1,
+                                           "--epoch", str(epochs)]), "eval_depth")
+        hook_row = [vals[-1][k] for k in eval_depth.METRICS]
+        rel = max(abs(a - b) / abs(b) for a, b in zip(row, hook_row))
+        res["eval_depth"] = {"row": [float(v) for v in row], "hook_row": hook_row,
+                             "max_rel_diff": rel}
+        if not rel <= 1e-6:
+            raise AssertionError(f"eval_depth {row} against the hook's {hook_row}")
+        expect_launches("eval_depth", 0, n_val)
+
+        # 5. Odometry over a 110-frame drive (one 100 m segment).
+        seq_root, gt_dir, out = (os.path.join(root, d) for d in ("seq", "gt_pose", "odom"))
+        t0 = time.perf_counter()
+        render_odometry_sequence(seq_root, "21", gt_dir, 256, 110)
+        res["stages"]["render_drive"] = {"seconds": time.perf_counter() - t0}
+        plot = importlib.util.find_spec("matplotlib") is not None
+        tool = draw_odometry.main if plot else draw_odometry.predict_and_score
+        odom = cli(lambda: tool(["--config", cfg2, "--checkpoint", wd1, "--epoch", str(epochs),
+                                 "--sequence", "21", "--gt_dir", gt_dir, "--out", out]),
+                   "draw_odometry")
+        poses = load_kitti_poses(os.path.join(out, "21.txt"))
+        rot = poses[:, :3, :3]
+        ortho = float(abs(rot @ rot.transpose(0, 2, 1) - np.eye(3)).max())
+        res["odometry"] = {k: v for k, v in odom.items()
+                           if isinstance(v, (int, float)) and not isinstance(v, bool)}
+        res["odometry"].update(pose_rows=len(poses), rotation_orthonormal_err=ortho,
+                               matplotlib=plot)
+        if not (len(poses) == 110 and ortho < 1e-2 and odom["n_segments"] >= 1
+                and math.isfinite(odom["t_rel_percent"])
+                and math.isfinite(odom["r_rel_deg_per_100m"])):
+            raise AssertionError(f"odometry: {res['odometry']}")
+    finally:
+        ckpt_mod.save_checkpoint, ckpt_mod.restore_checkpoint = save0, restore0
+        shutil.rmtree(root, ignore_errors=True)
+    res["checkpoint_save_s"], res["checkpoint_restore_s"] = io_s["save"], io_s["restore"]
+    log(f"workflow: {json.dumps({k: v for k, v in res.items() if k != 'train_payloads'})}")
+    return res
+
+
 def main() -> int:
     import torch
 
@@ -1436,6 +1731,9 @@ def main() -> int:
     if (fp["k1"], fp["k2"], fp["k3"], fp["k4"], fp["k5"], fp["k5_bwd"], fp["stem_pool_bwd"]) != (
             1, 1, per_step["conv3x3"] + n_k3_train, n_k3_train, per_step["maxpool5x5"], 16, 4):
         raise AssertionError(f"fit profiler kernel counts a step {fp}, expected {per_step}")
+    # Phase 10: the tools around the fit, each stage's launches checked there
+    # against per_step and the eval forward's sites.
+    wf = phase_workflow(torch, train_sites, per_step)
 
     def entry(kid, name, src, replaces, count, err, per, bound_by):
         lib = per["library_ms"]
@@ -1478,14 +1776,16 @@ def main() -> int:
                    sp["max_abs_err"], sp["per_step"], sp["bound_by"]),
              max_pool2d_bwd_ms_for_scale=sp["per_step"]["max_pool2d_bwd_ms"]),
     ]}
-    for row in table["kernels"]:  # launches of phase 9's fit, its own main path
-        row["fit_launches"] = fl[{"conv3x3_fwd": "conv3x3", "maxpool5x5_fwd": "maxpool5x5"}
-                                 .get(row["name"], row["name"])]
+    for row in table["kernels"]:  # launches of phase 9's fit and phase 10's stages
+        counter = {"conv3x3_fwd": "conv3x3", "maxpool5x5_fwd": "maxpool5x5"}.get(
+            row["name"], row["name"])
+        row["fit_launches"] = fl[counter]
+        row["workflow_launches"] = {stage: n[counter] for stage, n in wf["launches"].items()}
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
     with open(os.path.join(ROOT, "chiprun_out", "chip_smoke.json"), "w") as f:
         json.dump({"card": card, "build_s": build_s, "ptxas": ptxas, "k3_sites": n_k3,
                    "k3": k3, "k5": k5, "stem_pool": sp, "eval": ev, "stream": st, "reproj": rp,
-                   "conv_bwd": cb, "train": tr, "fit": ft,
+                   "conv_bwd": cb, "train": tr, "fit": ft, "workflow": wf,
                    "seconds": time.perf_counter() - t_start, "table": table},
                   f, indent=1)
     print(json.dumps(table), flush=True)

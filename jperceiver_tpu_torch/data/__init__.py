@@ -6,11 +6,12 @@ from .calib import load_odometry_calib, load_raw_calib, read_calib_file
 from .kitti import KittiDepth, KittiObject, KittiOdometry, KittiRaw
 from .loader import DataLoader, collate
 from .simulated import SimulatedDataset
-from .splits import get_dataset, readlines, split_file
+from .splits import (get_dataset, readlines, scan_object_split, scan_odometry_split,
+                     split_file)
 from .synthetic import synthetic_batch
 from .velodyne import generate_depth_map
 
 __all__ = ["Argoverse", "DataLoader", "KittiDepth", "KittiObject", "KittiOdometry",
            "KittiRaw", "SimulatedDataset", "collate", "generate_depth_map", "get_dataset",
            "load_odometry_calib", "load_raw_calib", "read_calib_file", "readlines",
-           "split_file", "synthetic_batch"]
+           "scan_object_split", "scan_odometry_split", "split_file", "synthetic_batch"]

@@ -5,12 +5,14 @@ dataset class, and the file datasets read the split list
 
 The port ships no split lists: a file dataset needs `data.split_dir`. The
 JAX package's lists (`jperceiver_tpu/data/artifacts/splits`) are in that
-layout. The simulated dataset needs no files.
+layout, and `scan_odometry_split` / `scan_object_split` (`tools/make_splits`)
+write them from a dataset tree. The simulated dataset needs no files.
 """
 
 from __future__ import annotations
 
 import os
+from typing import Sequence
 
 # Datasets of the JAX package's `get_dataset` that the port has not ported.
 _NOT_PORTED = ("euroc", "eth3d", "folder", "cityscape", "nuscenes")
@@ -31,6 +33,27 @@ def split_file(split_dir: str, split: str, training: bool) -> str:
         return val
     test = os.path.join(split_dir, split, "test_files.txt")
     return test if os.path.isfile(test) else val
+
+
+def scan_odometry_split(data_path: str, sequences: Sequence[str]) -> list[str]:
+    """Odometry split lines (`<seq>/road_dense128/<frame>.png`) from a
+    KITTI odometry tree, for the sequences that have road labels."""
+    out = []
+    for seq in sequences:
+        d = os.path.join(data_path, seq, "road_dense128")
+        if not os.path.isdir(d):
+            continue
+        out.extend(f"{seq}/road_dense128/{f}" for f in sorted(os.listdir(d)) if f.endswith(".png"))
+    return out
+
+
+def scan_object_split(data_path: str) -> list[str]:
+    """3D-object split lines (frame ids) from a KITTI object tree's
+    `training/vehicle_256` labels."""
+    d = os.path.join(data_path, "training", "vehicle_256")
+    if not os.path.isdir(d):
+        return []
+    return [os.path.splitext(f)[0] for f in sorted(os.listdir(d)) if f.endswith(".png")]
 
 
 def get_dataset(data_cfg, training: bool = True, with_sdf: bool = False,

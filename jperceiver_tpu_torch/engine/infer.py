@@ -25,7 +25,10 @@ def conv_gates_from_cfg(cfg=None) -> tuple[bool, bool]:
 
 def make_eval_step(model, cfg=None, device=None) -> Callable[[dict], dict]:
     """Returns `step(batch) -> outputs`: the model in eval mode on `device`
-    (CUDA by default), run under `torch.inference_mode()` with pose.
+    (CUDA by default), run under `torch.inference_mode()` with pose. Every
+    call puts the model in eval mode first, so a step built once runs on the
+    running statistics, without dropout, after any training step between
+    its calls.
 
     batch["color_aug"] is (B, F, 3, H, W) in [0, 1], a tensor or a numpy
     array; outputs are float32 tensors on `device` (see `models/jperceiver`).
@@ -38,6 +41,6 @@ def make_eval_step(model, cfg=None, device=None) -> Callable[[dict], dict]:
         color_aug = torch.as_tensor(batch["color_aug"], dtype=torch.float32,
                                     device=dev)
         with torch.inference_mode():
-            return model({"color_aug": color_aug}, with_pose=True)
+            return model({"color_aug": color_aug}, train=False, with_pose=True)
 
     return step

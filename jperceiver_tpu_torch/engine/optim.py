@@ -86,6 +86,15 @@ class AdamLowPrecisionMu(torch.optim.Optimizer):
         super().__init__(params, dict(lr=lr, weight_decay=weight_decay))
         self.mu_dtype, self.betas, self.eps = mu_dtype, betas, eps
 
+    def load_state_dict(self, state_dict: dict) -> None:
+        """`Optimizer.load_state_dict` casts every floating state tensor to
+        its parameter's dtype; the first moment goes back to `mu_dtype`, or
+        a restored run would stop rounding it and leave the run it resumes."""
+        super().load_state_dict(state_dict)
+        for st in self.state.values():
+            if "mu" in st:
+                st["mu"] = st["mu"].to(self.mu_dtype)
+
     @torch.no_grad()
     def step(self, closure=None):
         b1, b2 = self.betas

@@ -25,7 +25,8 @@ def make_streaming_fn(model, chunk: int = 8, device=None) -> Callable:
     per frame after the first: `disp` (T-1, 1, H/2, W/2), `topview` and
     `topviewB` where the model has that branch, `cam_T_cam` and
     `global_pose` (T-1, 4, 4). `cam_T_cam` is in the compute dtype, as
-    `pose_between` gives it; `global_pose` is fp32.
+    `pose_between` gives it; `global_pose` is fp32. Every call runs the
+    model in eval mode, whatever mode a training step between calls left.
     """
     if chunk < 1:
         raise ValueError(f"chunk must be >= 1, got {chunk}")
@@ -38,6 +39,7 @@ def make_streaming_fn(model, chunk: int = 8, device=None) -> Callable:
                  if init_pose is None else
                  torch.as_tensor(init_pose, dtype=torch.float32, device=dev))
         outs: dict[str, list[torch.Tensor]] = {}
+        model.eval()
         with torch.inference_mode():
             prev = frames[:1]
             for start in range(1, frames.shape[0], chunk):

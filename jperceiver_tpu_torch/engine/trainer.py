@@ -118,12 +118,16 @@ class Trainer:
     which holds the model, optimizer, iteration and generator), an
     `epoch_time` payload, and a `torch.profiler` trace of steps 10-14 of the
     first epoch in `profile_dir`. Payloads carry the JAX Trainer's keys.
+    `fit_resilient` is `fit` that restores the newest checkpoint and goes on
+    after a runtime or I/O failure.
 
     `cfg` is the run's config as `Config.fromfile` gives it: the losses read
     `cfg.model` (the model configuration the JAX Trainer takes) and the
     optimizer `cfg.optimizer`, `cfg.optimizer_config` and `cfg.lr_config`
     (the JAX package builds it from these in `tools/train.py`, outside its
     Trainer; here the step holds it). A config without `model` raises.
+
+    `seed` seeds the step's generator (dropout, the automask noise).
 
     `data_wait_s` holds, per epoch, the host seconds the loop waited for
     each batch from the prefetch queue (the last entry: the wait for its
@@ -133,7 +137,7 @@ class Trainer:
     def __init__(self, model, cfg, train_loader: Iterable, steps_per_epoch: int,
                  device=None, eval_hook: Callable | None = None,
                  checkpoint_fn: Callable | None = None, log_fn: Callable | None = None,
-                 log_interval: int = 50, profile_dir: str | None = None):
+                 log_interval: int = 50, profile_dir: str | None = None, seed: int = 0):
         if "model" not in cfg:
             raise ValueError("Trainer takes the run's config (with `model`, `optimizer`, "
                              "`optimizer_config`, `lr_config`), not the model's")
@@ -148,7 +152,8 @@ class Trainer:
         self.log_interval = log_interval
         self.profile_dir = profile_dir
         self.train_step = make_train_step(model, cfg["model"], self.device,
-                                          steps_per_epoch=steps_per_epoch, optim_cfg=cfg)
+                                          steps_per_epoch=steps_per_epoch, seed=seed,
+                                          optim_cfg=cfg)
         self.data_wait_s: list[list[float]] = []
 
     def _to_device(self, batch: dict, stream):
@@ -167,9 +172,12 @@ class Trainer:
     def _prefetch(self, it: Iterator, n_steps: int) -> Iterator[dict]:
         """Overlap host decode and the host-to-device copy with the steps:
         one background thread keeps up to 2 batches on the device ahead of
-        the loop. A loader error is raised here, in the caller."""
+        the loop. A loader error is raised here, in the caller. When the
+        loop stops early (a failed step), the thread stops too and the
+        batches it holds are dropped."""
         out: queue.Queue = queue.Queue(maxsize=2)
         error: list[BaseException] = []
+        stop = threading.Event()
         stream = torch.cuda.Stream(self.device) if self.device.type == "cuda" else None
 
         def producer():
@@ -179,30 +187,79 @@ class Trainer:
                         batch = next(it)
                     except StopIteration:
                         break
-                    out.put(self._to_device(batch, stream))
+                    item = self._to_device(batch, stream)
+                    while not stop.is_set():
+                        try:
+                            out.put(item, timeout=0.1)
+                            break
+                        except queue.Full:
+                            pass
+                    if stop.is_set():
+                        return
             except BaseException as e:  # surface loader errors, don't hang
                 error.append(e)
             finally:
-                out.put(None)
+                if not stop.is_set():
+                    out.put(None)
 
         threading.Thread(target=producer, daemon=True).start()
-        while True:
-            item = out.get()
-            if item is None:
-                if error:
-                    raise error[0]
-                return
-            batch, done = item
-            if done is not None:
-                cur = torch.cuda.current_stream(self.device)
-                cur.wait_event(done)
-                for t in batch.values():
-                    t.record_stream(cur)
-            yield batch
+        try:
+            while True:
+                item = out.get()
+                if item is None:
+                    if error:
+                        raise error[0]
+                    return
+                batch, done = item
+                if done is not None:
+                    cur = torch.cuda.current_stream(self.device)
+                    cur.wait_event(done)
+                    for t in batch.values():
+                        t.record_stream(cur)
+                yield batch
+        finally:
+            stop.set()
+            while not out.empty():
+                out.get_nowait()
 
     def _sync(self) -> None:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
+
+    def fit_resilient(self, total_epochs: int, work_dir: str, start_epoch: int = 0,
+                      max_restarts: int = 3) -> TrainStep:
+        """`fit` that recovers from a failure: on a `RuntimeError` or an
+        `OSError` it logs a `{"mode": "restart", "error", "attempt"}`
+        payload, restores the newest checkpoint under `work_dir` into the
+        live `TrainStep` in place (model, optimizer, iteration, generator)
+        and goes on from that checkpoint's epoch, up to `max_restarts`
+        times. When `work_dir` holds no checkpoint yet, it first saves one
+        of the state it starts from, as epoch `start_epoch`, so that every
+        restart restores a checkpoint. Programming errors (`TypeError`,
+        `ValueError`, `KeyError`, ...) are raised at once: a restart would
+        only repeat them.
+
+        On the card a restart mends what leaves the CUDA context usable: a
+        loader or file-system failure, an out-of-memory error. An error that
+        breaks the context (an illegal address, a device-side assert) fails
+        every later CUDA call in the process, and the restored step with
+        it; only a new process recovers from that (`tools/train.py
+        --resume_from`).
+        """
+        from .checkpoint import latest_epoch, restore_checkpoint, save_checkpoint
+
+        if latest_epoch(work_dir) is None:
+            save_checkpoint(work_dir, self.train_step, start_epoch)
+        restarts = 0
+        while True:
+            try:
+                return self.fit(total_epochs, start_epoch=start_epoch)
+            except (RuntimeError, OSError) as e:
+                restarts += 1
+                if restarts > max_restarts:
+                    raise
+                self.log_fn({"mode": "restart", "error": str(e)[:200], "attempt": restarts})
+                start_epoch = restore_checkpoint(work_dir, self.train_step)
 
     def fit(self, total_epochs: int, start_epoch: int = 0) -> TrainStep:
         prof = None

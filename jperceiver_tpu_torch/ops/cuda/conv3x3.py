@@ -49,7 +49,14 @@ _F32_WG_BK = 32    # fp32 K4's pixel chunk granule
 # bytes (8 channels) and fills channels past the real count with zeros.
 _CHUNK = 64
 _K3_PIXELS, _K4_PIXELS = 128, 64
-_K3_WIDTHS, _K4_WIDTHS = (256, 176, 128, 64), (256, 128, 64)
+# The most `wgmma` (16 pixels each) K4's accumulator sums before the kernel
+# adds it into its second fp32 sum, in registers: wgmma's own adds lose
+# precision with the length of that chain (`k4_plan`).
+K4_CHAIN = 16
+# What a wave of K4 blocks costs beyond its tiles (pipeline fill, the
+# partial's store), in tiles of a block (`k4_plan`).
+_K4_WAVE_TILES = 4
+_K3_WIDTHS, _K4_WIDTHS = (256, 176, 128, 64), (128, 64)
 _BOX_WIDTHS = (128, 64, 32, 16, 8)
 
 
@@ -76,7 +83,9 @@ class TilePlan:
     read 64 at a time (`kchunks` chunks), zero past `c`. K3 gives a block
     one tile and `bn` output channels and loops over (tap, chunk); K4 gives
     a block two (tap, chunk) items, `bn` output channels and a split of
-    `tiles_per_split` consecutive tiles, and loops over the tiles. An
+    `tiles_per_split` consecutive tiles, and loops over the tiles, adding
+    its `wgmma` accumulator into a second fp32 sum every `flush_tiles`
+    tiles; at the end it writes that sum as the split's partial. An
     operand that has to be copied is stored `c_store` (`o_store`) channels
     wide; K3's output is stored `o_store` wide.
     """
@@ -92,6 +101,7 @@ class TilePlan:
     bn: int
     splits: int = 1
     tiles_per_split: int = 0
+    flush_tiles: int = 0
 
     @property
     def ho(self) -> int:
@@ -176,20 +186,30 @@ def k3_plan(b: int, h: int, w: int, c: int, o: int, pad: int, sms: int = 132) ->
 @functools.lru_cache(maxsize=512)
 def k4_plan(b: int, h: int, w: int, c: int, o: int, pad: int, sms: int = 132) -> TilePlan:
     """The tile plan of a bf16 K4 launch on x (b, c, h, w) and a cotangent
-    of o channels: tiles of 64 pixels, the output-tile width that covers o
-    with the fewest columns (the widest of equals), and the pixels split so
-    that the grid
-    fills the `sms` SMs in one wave, with at least 16 tiles a split (fewer
-    splits cost less to sum where a split has little to do: on the H100, 4
-    splits of 16 tiles beat 7 of 10 at 256 -> 256 @ 64^2)."""
+    of o channels: tiles of 64 pixels, the output-tile width (64 or 128:
+    the kernel's second sum sits in registers beside its accumulator) that
+    covers o with the fewest columns, the widest of equals, and the pixels
+    cut into the splits that make the kernel's critical path least: waves
+    of blocks on the `sms` SMs times (the tiles a block sums plus
+    _K4_WAVE_TILES), of equals the fewest splits (each writes 9 x 64
+    kchunks x o fp32 partials that `sum_splits` reads again), with at
+    least 16 tiles a split.
+
+    Within a split the kernel sums K4_CHAIN `wgmma` in its accumulator
+    before it adds them into the second fp32 sum: summed in the accumulator
+    alone, 1,024 tiles came out 71x the plain version's distance to float64
+    at 513 -> 256 @ 256^2 and B = 3 on the H100 (`chip_conv_sweep.py
+    --k4-flush`)."""
     ho, wo = h + 2 * pad - 2, w + 2 * pad - 2
     box_w, box_h = _pick_box(ho, wo, _K4_PIXELS)
     tiles = b * _ceil(wo, box_w) * _ceil(ho, box_h)
     bn = min(_K4_WIDTHS, key=lambda n: (_ceil(o, n) * n, -n))
     blocks = _ceil(9 * _ceil(c, _CHUNK), 2) * _ceil(o, bn)
-    splits = max(1, min(sms // blocks, tiles // 16))
+    splits = min(range(1, max(1, tiles // 16) + 1),
+                 key=lambda s: (_ceil(blocks * s, sms) * (_ceil(tiles, s) + _K4_WAVE_TILES), s))
     per_split = _ceil(tiles, splits)
-    return TilePlan(b, h, w, c, o, pad, box_w, box_h, bn, _ceil(tiles, per_split), per_split)
+    return TilePlan(b, h, w, c, o, pad, box_w, box_h, bn, _ceil(tiles, per_split), per_split,
+                    min(K4_CHAIN * 16 // _K4_PIXELS, per_split))
 
 
 @functools.cache
@@ -369,7 +389,7 @@ def _wgrad_bf16(xh: torch.Tensor, g: torch.Tensor, pad: int) -> torch.Tensor:
     err = _build.library().jp_conv3x3_wgrad_bf16(
         xh.data_ptr(), gh.data_ptr(), partial.data_ptr(), out.data_ptr(),
         bsz, h, wd, c, *_strides(xh), o, *_strides(gh), pad, p.box_w, p.box_h, p.bn,
-        p.splits, p.tiles_per_split, _stream(xh))
+        p.splits, p.tiles_per_split, p.flush_tiles, _stream(xh))
     _build.check(err, "conv3x3_wgrad")
     LAUNCHES["conv3x3_wgrad"] += 1
     return out

@@ -21,26 +21,27 @@
 // Design: a GEMM with a long reduction, (9C x O) += x_tap^T . g over pixels. Hopper's
 // blocks run in parallel and in no order -- nothing carries over between them as the TPU
 // grid's VMEM accumulator did -- so the pixels are split: each split writes fp32 partials,
-// and `sum_splits` adds them in a fixed order into (O, C, 3, 3). No atomics.
+// and `sum_splits` adds them in a fixed order into (O, C, 3, 3).
 //   * bf16: a block owns two (tap, 64-channel) items -- one per consumer warpgroup -- and
-//     BN output channels (64, 128 or 256), over one split's pixel tiles. A K step is a
-//     tile of 64 output pixels (a box of box_w x box_h of one image): ONE TMA load of the
+//     BN output channels (64 or 128), over one split's pixel tiles. A K step is a tile of
+//     64 output pixels (a box of box_w x box_h of one image): ONE TMA load of the
 //     cotangent, (64 o, box_w, box_h, 1) boxes that both warpgroups share, and per item
 //     one box of x at (c0, ox0 + kx - pad, oy0 + ky - pad, b), zero-filled outside the
 //     image as the padding is. Both operands are MN-major in shared memory (channels
 //     contiguous, pixels along the rows, 128-byte swizzled); wgmma m64nBNk16 reads them
-//     through its transpose bits. So a 128 x 256 (c, o) tile reads g once for two taps,
-//     where a block per tap read it nine times. A producer warp keeps a ring of 4-6 stages
-//     in flight behind full/empty mbarriers. The split count fills the 132 SMs in one wave.
+//     through its transpose bits. So a 128 x 128 (c, o) tile reads g once for two taps,
+//     where a block per tap read it nine times. A producer warp keeps a ring of 6 stages
+//     in flight behind full/empty mbarriers. `k4_plan` splits the pixels so that the
+//     waves of blocks times the tiles a block sums is least. Every few tiles the
+//     accumulator is added into a second fp32 sum in registers (below): wgmma's own adds
+//     lose precision along a chain.
 //   * fp32: a 64x64 tile of one tap on the CUDA cores, 4x4 outputs a thread, fed by
 //     cp.async (the tensor cores would round fp32 to TF32, which the contract does not
 //     allow), with blocked fp32 sums.
-// Measured share of the bound (bf16, device time with the reduction, `chip_smoke.py` phase
-// 7 on an NVIDIA H100 80GB HBM3 at 700 W): 64->64 @ 256^2 0.15, 128->128 @ 128^2 0.21,
-// 256->256 @ 64^2 0.19, 256->256 @ 128^2 0.39, 256->256 @ 256^2 0.58, 513->256 @ 256^2 0.56.
-// What holds it there: the same L2 rate as K3's at the large sites (48 KB a K step for
-// 4.2 MFLOP); at the small ones the fp32 partials, `splits` x 9C x O x 4 bytes written and
-// summed again, against a few microseconds of products.
+// What holds it below its bound: the L2 rate at the large sites (32 KB a K step for 2.1
+// MFLOP), and at the small ones the fp32 partials, `splits` x 9C x O x 4 bytes written and
+// summed again, against a few microseconds of products. Times and shares of the bound are in
+// PERF.md (`chip_smoke.py` phase 7, `chip_conv_sweep.py --k4-flush`).
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -57,23 +58,46 @@ namespace {
 
 namespace bf16k {
 
-constexpr int BP = 64;        // pixels a K step
 constexpr int THREADS = 384;  // warpgroups 0-1 consume (wgmma), warpgroup 2 produces (TMA)
+
+constexpr int BP = 64;        // pixels a K step
 constexpr int BOX_BYTES = BP * 64 * 2;  // one (64 channels, 64 pixels) box: 8 KB
 
+// wgmma's fp32 accumulator loses precision in its own adds, by an amount that grows with the
+// number of wgmma it sums (`chip_conv_sweep.py --k4-flush`: 71x the plain version's distance
+// to float64 after 1,024 tiles, where fp32 adds rounded to nearest over the same chain stay
+// at 0.8x). So every `flush_tiles` tiles each consumer thread adds the accumulator into a
+// second fp32 sum in registers beside it and zeroes it. Both fit up to 128 output channels
+// (64 registers each at BN = 128), which is why BN stops there.
 template <int BN>
 struct Cfg {
+  static_assert(BN == 64 || BN == 128, "the second sum sits in registers up to 128 wide");
   static constexpr int G_BOXES = BN / 64;
   static constexpr int STAGE_BYTES = (2 + G_BOXES) * BOX_BYTES;  // x for two items, then g
   static constexpr int STAGES = 196608 / STAGE_BYTES > 6 ? 6 : 196608 / STAGE_BYTES;
   static constexpr int SMEM = 1024 + STAGES * STAGE_BYTES + 2 * STAGES * 8;
 };
 
+// This thread's elements of a 64 x BN accumulator tile: pairs of columns at rows r and r + 8
+// (`out` points at row r, column 0 of the tile).
+template <int BN>
+__device__ __forceinline__ void to_partial(const float (&acc)[BN / 2], float* out, int o_cols) {
+  const int lane = threadIdx.x % 32;
+#pragma unroll
+  for (int j = 0; j < BN / 8; ++j) {
+    float* lo = out + 8 * j + 2 * (lane % 4);
+    *reinterpret_cast<float2*>(lo) = make_float2(acc[4 * j], acc[4 * j + 1]);
+    *reinterpret_cast<float2*>(lo + (size_t)8 * o_cols) = make_float2(acc[4 * j + 2],
+                                                                       acc[4 * j + 3]);
+  }
+}
+
 template <int BN>
 __global__ void __launch_bounds__(THREADS, 1)
 wgrad_bf16_wgmma(const __grid_constant__ CUtensorMap xmap, const __grid_constant__ CUtensorMap gmap,
                  float* __restrict__ partial, int c_rows, int o_cols, int pad, int box_w,
-                 int box_h, int tiles_x, int tiles_y, int tiles, int tiles_per_split, int kchunks) {
+                 int box_h, int tiles_x, int tiles_y, int tiles, int tiles_per_split, int kchunks,
+                 int flush_tiles) {
   using Cf = Cfg<BN>;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = jp::align1024(smem_raw);
@@ -116,17 +140,23 @@ wgrad_bf16_wgmma(const __grid_constant__ CUtensorMap xmap, const __grid_constant
                           oy0 + ky - pad, b);
         }
         for (int j = 0; j < Cf::G_BOXES; ++j)
-          jp::tma_load_4d(st + (2 + j) * BOX_BYTES, &gmap, &full[s], n0 + 64 * j, ox0, oy0, b);
+          jp::tma_load_4d(st + (2 + j) * BOX_BYTES, &gmap, &full[s], n0 + 64 * j, ox0,
+                          oy0, b);
       }
     }
   } else {
     jp::setmaxnreg_inc<232>();
     if (wg < n_items) {
       const int warp = (threadIdx.x % 128) / 32, lane = threadIdx.x % 32;
-      float acc[BN / 2];
+      float acc[BN / 2], rsum[BN / 2];
 #pragma unroll
-      for (int i = 0; i < BN / 2; ++i) acc[i] = 0.0f;
+      for (int i = 0; i < BN / 2; ++i) acc[i] = rsum[i] = 0.0f;
       jp::fence_accumulator(acc);
+      // Rows are the item's 64 channels, columns BN output channels.
+      const int item = item0 + wg;
+      const int tap = item / kchunks, c0 = (item - tap * kchunks) * 64;
+      const int r = warp * 16 + lane / 4;
+      float* out = partial + ((size_t)(split * 9 + tap) * c_rows + c0 + r) * o_cols + n0;
       const uint32_t x_base = jp::smem_u32(smem) + wg * BOX_BYTES;
       const uint32_t g_base = jp::smem_u32(smem) + 2 * BOX_BYTES;
       for (int i = 0; i < ksteps; ++i) {
@@ -141,23 +171,22 @@ wgrad_bf16_wgmma(const __grid_constant__ CUtensorMap xmap, const __grid_constant
         jp::wgmma_commit();
         jp::wgmma_wait<1>();
         if (i > 0 && lane == 0) jp::mbar_arrive(&empty[(i - 1) % Cf::STAGES]);
+        if ((i + 1) % flush_tiles == 0 && i + 1 < ksteps) {
+          jp::wgmma_wait<0>();
+          jp::fence_accumulator(acc);
+#pragma unroll
+          for (int j = 0; j < BN / 2; ++j) {
+            rsum[j] += acc[j];
+            acc[j] = 0.0f;
+          }
+          jp::fence_accumulator(acc);
+        }
       }
       jp::wgmma_wait<0>();
       jp::fence_accumulator(acc);
-
-      // Rows are the item's 64 channels, columns BN output channels; pairs of columns
-      // go out as 8-byte stores, a warp's quad covering 32 contiguous bytes.
-      const int item = item0 + wg;
-      const int tap = item / kchunks, c0 = (item - tap * kchunks) * 64;
-      const int r = warp * 16 + lane / 4;
-      float* out = partial + ((size_t)(split * 9 + tap) * c_rows + c0 + r) * o_cols + n0;
 #pragma unroll
-      for (int j = 0; j < BN / 8; ++j) {
-        const int col = 8 * j + 2 * (lane % 4);
-        *reinterpret_cast<float2*>(out + col) = make_float2(acc[4 * j], acc[4 * j + 1]);
-        *reinterpret_cast<float2*>(out + (size_t)8 * o_cols + col) =
-            make_float2(acc[4 * j + 2], acc[4 * j + 3]);
-      }
+      for (int j = 0; j < BN / 2; ++j) acc[j] = rsum[j] + acc[j];
+      to_partial<BN>(acc, out, o_cols);
     }
   }
 }
@@ -165,7 +194,7 @@ wgrad_bf16_wgmma(const __grid_constant__ CUtensorMap xmap, const __grid_constant
 template <int BN>
 cudaError_t launch(const CUtensorMap& xmap, const CUtensorMap& gmap, float* partial, int B,
                    int Ho, int Wo, int O, int pad, int box_w, int box_h, int kchunks, int splits,
-                   int tiles_per_split, cudaStream_t stream) {
+                   int tiles_per_split, int flush_tiles, cudaStream_t stream) {
   // Above 48 KB of dynamic shared memory a kernel must ask, once.
   static const cudaError_t attr = cudaFuncSetAttribute(
       wgrad_bf16_wgmma<BN>, cudaFuncAttributeMaxDynamicSharedMemorySize, Cfg<BN>::SMEM);
@@ -178,7 +207,7 @@ cudaError_t launch(const CUtensorMap& xmap, const CUtensorMap& gmap, float* part
   const dim3 grid((9 * kchunks + 1) / 2, o_tiles, splits);
   wgrad_bf16_wgmma<BN><<<grid, THREADS, Cfg<BN>::SMEM, stream>>>(
       xmap, gmap, partial, 64 * kchunks, o_tiles * BN, pad, box_w, box_h, tiles_x, tiles_y,
-      tiles, tiles_per_split, kchunks);
+      tiles, tiles_per_split, kchunks, flush_tiles);
   return cudaGetLastError();
 }
 
@@ -346,18 +375,19 @@ cudaError_t reduce(const float* partial, float* out, int C, int O, int c_rows, i
 // bf16: x (B, H, W, C) and g (B, Ho, Wo, O) channels-last with pixel, row and image strides
 // sx_* and sg_* (elements, multiples of 8); channels past C and O are never read.
 // partial: `splits` x (9, 64*ceil(C/64), bn*ceil(O/bn)) fp32 scratch; out: (O, C, 3, 3)
-// fp32. Pixel tiles of box_w x box_h = 64, bn output channels (64, 128 or 256),
+// fp32. Pixel tiles of box_w x box_h = 64, bn output channels (64 or 128),
 // tiles_per_split tiles a split: the wrapper's tile plan (`ops/cuda/conv3x3.py::k4_plan`).
 // Returns the cudaError_t of the launches.
 extern "C" int jp_conv3x3_wgrad_bf16(const void* x, const void* g, float* partial, float* out,
                                      int B, int H, int W, int C, long long sx_w, long long sx_h,
                                      long long sx_b, int O, long long sg_w, long long sg_h,
                                      long long sg_b, int pad, int box_w, int box_h, int bn,
-                                     int splits, int tiles_per_split, void* stream) {
+                                     int splits, int tiles_per_split, int flush_tiles,
+                                     void* stream) {
   const int Ho = H + 2 * pad - 2, Wo = W + 2 * pad - 2;
   if (C < 1 || O < 1 || Ho <= 0 || Wo <= 0 || !jp::tma_strides(sx_w, sx_h, sx_b) ||
       !jp::tma_strides(sg_w, sg_h, sg_b) || box_w * box_h != bf16k::BP || box_w > 256 ||
-      box_h > 256 || splits < 1 || tiles_per_split < 1 ||
+      box_h > 256 || splits < 1 || tiles_per_split < 1 || flush_tiles < 1 ||
       (reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(g)) % 16 != 0)
     return static_cast<int>(cudaErrorInvalidValue);
   CUtensorMap xmap, gmap;
@@ -368,9 +398,8 @@ extern "C" int jp_conv3x3_wgrad_bf16(const void* x, const void* g, float* partia
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   switch (bn) {
-    case 64: err = bf16k::launch<64>(xmap, gmap, partial, B, Ho, Wo, O, pad, box_w, box_h, kchunks, splits, tiles_per_split, s); break;
-    case 128: err = bf16k::launch<128>(xmap, gmap, partial, B, Ho, Wo, O, pad, box_w, box_h, kchunks, splits, tiles_per_split, s); break;
-    case 256: err = bf16k::launch<256>(xmap, gmap, partial, B, Ho, Wo, O, pad, box_w, box_h, kchunks, splits, tiles_per_split, s); break;
+    case 64: err = bf16k::launch<64>(xmap, gmap, partial, B, Ho, Wo, O, pad, box_w, box_h, kchunks, splits, tiles_per_split, flush_tiles, s); break;
+    case 128: err = bf16k::launch<128>(xmap, gmap, partial, B, Ho, Wo, O, pad, box_w, box_h, kchunks, splits, tiles_per_split, flush_tiles, s); break;
     default: err = cudaErrorInvalidValue;
   }
   if (err != cudaSuccess) return static_cast<int>(err);

@@ -21,8 +21,8 @@ import numpy as np
 import pytest
 import torch
 
-from jperceiver_tpu_torch.ops.cuda.conv3x3 import (conv3x3_plain, conv3x3_wgrad_plain,
-                                                   k3_plan, k4_plan)
+from jperceiver_tpu_torch.ops.cuda.conv3x3 import (K4_CHAIN, conv3x3_plain,
+                                                   conv3x3_wgrad_plain, k3_plan, k4_plan)
 
 _CHUNK = 64
 
@@ -81,8 +81,9 @@ def replay_k3(x, w, bias, pad, plan):
 
 def replay_k4(x, g, pad, plan):
     """K4 computed box by box: per split, per pair of (tap, chunk) items and
-    output-channel tile, the pixel tiles of the split in order; then the
-    partials summed over splits in order."""
+    output-channel tile, the pixel tiles of the split in order, summed
+    `flush_tiles` at a time and each sum added into a second sum, which is
+    the split's partial; then the partials summed over splits in order."""
     xs, gs = _nhwc(x, plan.c_store), _nhwc(g, plan.o_store)
     items = 9 * plan.kchunks
     partial = torch.full((plan.splits, 9, _CHUNK * plan.kchunks, plan.bn * plan.n_tiles),
@@ -96,8 +97,9 @@ def replay_k4(x, g, pad, plan):
                 tap, chunk = divmod(item, plan.kchunks)
                 for n in range(plan.n_tiles):
                     n0 = n * plan.bn
+                    slot = None
                     acc = torch.zeros(_CHUNK, plan.bn)
-                    for t in t_range:
+                    for i, t in enumerate(t_range):
                         b, oy0, ox0 = plan.tile_origin(t)
                         xb = _box(xs, plan.box(t, tap, chunk), _CHUNK, plan.box_w, plan.box_h,
                                   plan.c)
@@ -105,7 +107,12 @@ def replay_k4(x, g, pad, plan):
                                              plan.box_h, plan.o)
                                         for j in range(0, plan.bn, _CHUNK)], 1)
                         acc += xb.T @ gb
-                    partial[s, tap, chunk * _CHUNK:(chunk + 1) * _CHUNK, n0:n0 + plan.bn] = acc
+                        # The accumulator goes into the second sum every
+                        # flush_tiles tiles and after the last.
+                        if (i + 1) % plan.flush_tiles == 0 or i + 1 == len(t_range):
+                            slot = acc if slot is None else slot + acc
+                            acc = torch.zeros(_CHUNK, plan.bn)
+                    partial[s, tap, chunk * _CHUNK:(chunk + 1) * _CHUNK, n0:n0 + plan.bn] = slot
     total = partial[0]
     for s in range(1, plan.splits):
         total = total + partial[s]
@@ -165,6 +172,7 @@ def test_k4_plan_replay_matches_plain(b, c, o, h, w, pad):
     plan = k4_plan(b, h, w, c, o, pad)
     assert plan.box_w * plan.box_h == 64
     assert (plan.splits - 1) * plan.tiles_per_split < plan.tiles <= plan.splits * plan.tiles_per_split
+    assert 1 <= plan.flush_tiles <= plan.tiles_per_split
     rng = np.random.default_rng(c + o + h + pad + 1)
     x = torch.from_numpy(rng.standard_normal((b, c, h, w)).astype(np.float32))
     g = torch.from_numpy(rng.standard_normal((b, o, h + 2 * pad - 2, w + 2 * pad - 2))
@@ -187,7 +195,16 @@ def test_plans_at_the_step_sites():
     p = k3_plan(1, 256, 256, 256, 513, 2)  # iconv's data-grad: 513 outputs stored 576
     assert (p.o_store, p.bn, p.n_tiles, p.c_store) == (576, 176, 3, 256)
     assert p.box_w * p.box_h == 128 and p.tiles * 128 < 1.1 * 258 * 258
+    # K4: at most 128 wide (the second fp32 sum in registers), its
+    # accumulator added into that sum every K4_CHAIN wgmma (16 pixels each),
+    # and the pixels split so that waves x (tiles a block + 4) is least.
     q = k4_plan(1, 258, 258, 513, 256, 0)
-    assert (q.box_w, q.box_h, q.bn, q.c_store, q.splits) == (64, 1, 256, 576, 3)
-    q = k4_plan(1, 256, 256, 64, 64, 1)
-    assert (q.bn, q.splits) == (64, 26) and q.splits * q.tiles_per_split >= 1024
+    assert (q.box_w, q.box_h, q.bn, q.c_store, q.splits) == (64, 1, 128, 576, 8)
+    assert q.flush_tiles == K4_CHAIN // 4 < q.tiles_per_split == 128
+    q = k4_plan(3, 258, 258, 513, 256, 0)  # the preset fit's B = 3: 5 waves of 82 x 8 blocks
+    assert (q.bn, q.splits, q.tiles_per_split) == (128, 8, 384)
+    q = k4_plan(1, 66, 66, 513, 256, 0)  # 64 tiles: 3 splits of 22 in two waves
+    assert (q.splits, q.tiles_per_split, q.flush_tiles) == (3, 22, K4_CHAIN // 4)
+    q = k4_plan(1, 256, 256, 64, 64, 1)  # 64 wide, 5 blocks a split: one wave of 26 splits
+    assert (q.bn, q.splits, q.flush_tiles) == (64, 26, K4_CHAIN // 4)
+    assert q.splits * q.tiles_per_split >= 1024

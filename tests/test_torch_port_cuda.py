@@ -185,6 +185,26 @@ def test_conv3x3_wgrad_splits_and_repeats_bit_for_bit(cuda, dtype):
     assert (a - ref).abs().max().item() <= 1e-4 * ref.abs().max().item()
 
 
+def test_conv3x3_wgrad_long_chains_at_b8(cuda):
+    """K4 at the step's widest site, 513 -> 256 @ 256^2, at B = 8, where a
+    split sums the most tiles: within its gate (1e-4 of the largest |dW|)
+    and the same bits twice. Before the second-level sum the accumulator's
+    own adds took this site past the gate from B = 4 on."""
+    from jperceiver_tpu_torch.ops.cuda import conv3x3_wgrad, conv3x3_wgrad_plain
+
+    g = torch.Generator(device=cuda).manual_seed(8)
+    x = torch.randn(8, 513, 258, 258, device=cuda, generator=g).bfloat16()
+    x = x.contiguous(memory_format=torch.channels_last)
+    gy = torch.randn(8, 256, 256, 256, device=cuda, generator=g).bfloat16()
+    gy = gy.contiguous(memory_format=torch.channels_last)
+    a = conv3x3_wgrad(x, gy, 0)
+    b = conv3x3_wgrad(x, gy, 0)
+    ref = conv3x3_wgrad_plain(x, gy, 0)
+    torch.cuda.synchronize()
+    assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+    assert (a - ref).abs().max().item() <= 1e-4 * ref.abs().max().item()
+
+
 @pytest.mark.parametrize("f", [2, 3])
 @pytest.mark.parametrize("dtype,b", [(torch.float32, 1), (torch.bfloat16, 1),
                                      (torch.bfloat16, 2), (torch.float32, 3)])

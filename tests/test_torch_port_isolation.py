@@ -1,6 +1,7 @@
-"""The port stands alone: no module of `jperceiver_tpu_torch`, nor the
-card scripts `chip_smoke.py`, `chip_grad_routes.py` and
-`chip_conv_sweep.py`, imports JAX, its libraries or the JAX package."""
+"""The port stands alone: no module of `jperceiver_tpu_torch` (its
+`evaluation/` and `tools/` included), nor the card scripts `chip_smoke.py`,
+`chip_grad_routes.py` and `chip_conv_sweep.py`, imports JAX, its libraries
+or the JAX package."""
 
 import ast
 from pathlib import Path
@@ -31,10 +32,16 @@ def test_port_files_found():
     "config/config.py", "config/families.py", "config/presets/kitti_odom_1024.py",
     "data/transforms.py", "data/calib.py", "data/velodyne.py", "data/kitti.py",
     "data/argoverse.py", "data/simulated.py", "data/splits.py", "data/loader.py",
-    "engine/env.py", "engine/logger.py", "engine/trainer.py", "models/registry.py"])
+    "engine/env.py", "engine/logger.py", "engine/trainer.py", "models/registry.py",
+    "data/utils.py", "engine/checkpoint.py", "engine/eval_hook.py", "engine/optim.py",
+    "evaluation/metrics.py", "evaluation/transforms.py", "evaluation/trajectory.py",
+    "evaluation/kitti_odometry.py", "tools/train.py", "tools/eval_depth.py",
+    "tools/draw_odometry.py", "tools/acceptance.py", "tools/plot_trajectory.py",
+    "tools/make_splits.py", "tools/video_demo.py"])
 def test_config_data_engine_modules_checked(module):
-    """The config, data and engine modules, which copy JAX-package modules
-    that import no JAX, are among the files checked."""
+    """The config, data, engine, evaluation and tools modules, which copy
+    JAX-package modules (some of which import no JAX), are among the files
+    checked."""
     assert ROOT / "jperceiver_tpu_torch" / module in FILES
 
 
