@@ -81,9 +81,29 @@ Phases, each of which raises on failure:
      forward at its K3 sites and 16 CRP pools), its seconds and peak
      memory, the checkpoint's size and save and restore times.
 
-Prints the card line, a JSON line describing every kernel, and last the
-device line. Full results go to chiprun_out/chip_smoke.json. Exits non-zero
-without a CUDA device, outside a checkout of the repo, or when a phase fails.
+ 11. data parallel at the same preset (1024^2, occ 256, remat), B = 3 a
+     rank, in child processes of this script (`--child`), each with a time
+     limit: (a) two ranks over gloo on the one card: one step for
+     bn_groups 1 and 2 against one process at B = 6 with the same weights,
+     batch, noise and dropout draws, in fp32 with the kernels (losses
+     within rtol 1e-4, each trunk's averaged gradient within 3x the
+     one-process step's spread -- kernels on against off, or under a
+     rounding-level change of the input pixels -- plus 1e-3 of its norm),
+     each rank's launches a step, and over three steps ZeRO-1's Adam bit
+     for bit the plain one on the same gradients; (b) two ranks of
+     `tools/train.py --launcher pytorch --dist_backend gloo` in bf16, 2
+     epochs of 4 steps with validation on 13 scenes (launches per rank,
+     rank 0 alone writing, n_eval_samples 13, finite losses); (c) one rank
+     of the same CLI on NCCL, its default on the card, 1 epoch of 2 steps;
+ 12. `tools/profile_step.py` for 5 steps of the 1024^2 bf16 step, then
+     `tools/trace_summary.py` on its trace (K1-K5 and both pool backwards
+     by name with device time), and `tools/complexity.py` at 1024^2 (its
+     parameter total the model's).
+
+Prints the card line, a JSON line describing every kernel (with its
+launches in phases 8-11), and last the device line. Full results go to
+chiprun_out/chip_smoke.json. Exits non-zero without a CUDA device, outside
+a checkout of the repo, or when a phase fails.
 """
 
 from __future__ import annotations
@@ -1645,6 +1665,493 @@ def phase_workflow(torch, train_sites, per_step) -> dict:
     return res
 
 
+# ---- Phase 11: data parallel -------------------------------------------------
+
+DDP_B = 3  # per rank: the preset's imgs_per_gpu
+DDP_WORLD = 2
+DDP_STEPS, DDP_EPOCHS, DDP_VAL = 4, 2, 13
+CHILD_TIMEOUT_S = 420
+
+
+def _preset(overrides: dict):
+    from jperceiver_tpu_torch.config import Config
+
+    cfg = Config.fromfile(os.path.join(ROOT, "jperceiver_tpu_torch", "config", "presets",
+                                       "kitti_odom_1024.py"))
+    cfg.merge_from_dict(overrides)
+    return cfg
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _run_children(role: str, d: str, world: int, timeout_s: float) -> list[dict]:
+    """`world` ranks of `chip_smoke.py --child <role> <d>`, all on card 0
+    (LOCAL_RANK 0: one process per host in torchrun's terms), each with a
+    time limit; a child that fails or hangs fails the phase. Returns each
+    rank's `<d>/<role>_rank<r>.json`."""
+    port = _free_port()
+    procs = []
+    for r in range(world):
+        env = dict(os.environ, RANK=str(r), WORLD_SIZE=str(world), LOCAL_RANK="0",
+                   MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port))
+        log_f = open(os.path.join(d, f"{role}_rank{r}.log"), "w")
+        procs.append((subprocess.Popen([sys.executable, os.path.abspath(__file__), "--child",
+                                        role, d], env=env, stdout=log_f,
+                                       stderr=subprocess.STDOUT), log_f))
+    t0 = time.perf_counter()
+    try:
+        for p, _ in procs:
+            p.wait(timeout=max(1.0, timeout_s - (time.perf_counter() - t0)))
+    except subprocess.TimeoutExpired:
+        raise AssertionError(f"ddp {role}: a rank did not finish within {timeout_s} s "
+                             "(a hung collective?)")
+    finally:
+        for p, f in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+            f.close()
+    for r, (p, _) in enumerate(procs):
+        if p.returncode:
+            with open(os.path.join(d, f"{role}_rank{r}.log")) as f:
+                tail = f.read()[-4000:]
+            raise AssertionError(f"ddp {role}: rank {r} exited {p.returncode}:\n{tail}")
+    out = []
+    for r in range(world):
+        with open(os.path.join(d, f"{role}_rank{r}.json")) as f:
+            out.append(json.load(f))
+    return out
+
+
+def _ddp_step_cfg(bn_groups: int):
+    """Phase 11(a)'s step: the kitti_odom_1024 preset's model (1024^2, occ
+    256, remat, road branch) in fp32, B = 3 a rank."""
+    return _preset({"model.bn_groups": bn_groups, "model.compute_dtype": "float32"})
+
+
+def _ddp_step(weights, bn_groups: int, on: bool, zero1: bool = False):
+    """Phase 11(a)'s fp32 `TrainStep` from `weights`, with every kernel
+    (`on`) or with cuDNN and the plain versions."""
+    from jperceiver_tpu_torch.engine import make_train_step
+    from jperceiver_tpu_torch.models import build_model, set_kernels
+
+    cfg = _ddp_step_cfg(bn_groups)
+    cfg.merge_from_dict({"model.use_pallas_reproj": on})
+    model = build_model(cfg.model)
+    model.load_state_dict(weights)
+    step = make_train_step(model, cfg.model, steps_per_epoch=STEPS_PER_EPOCH, seed=0,
+                           optim_cfg=cfg, zero1=zero1)
+    set_kernels(model, on, on, on, stem_pool=on)
+    return step
+
+
+def child_step(torch, d: str) -> dict:
+    """A rank of phase 11(a), over gloo on the one card, on its rows of the
+    global batch: one fp32 step with the kernels for bn_groups 1 and 2
+    (launches counted around it, the CCT argmax recorded), then three
+    steps whose gradients both a plain and a ZeRO-1 Adam apply."""
+    from jperceiver_tpu_torch.ops import cuda as kernels
+    from jperceiver_tpu_torch.parallel import init_distributed, rank
+
+    init_distributed("gloo", timeout_s=CHILD_TIMEOUT_S)
+    r = rank()
+    inp = torch.load(os.path.join(d, "inputs.pt"), weights_only=False)
+    local = {k: v[r * DDP_B:(r + 1) * DDP_B] for k, v in inp["batch"].items()}
+    res = {"rank": r, "steps": {}}
+    for g in (1, 2):
+        step = _ddp_step(inp["weights"], g, True)
+        probes = []
+        hooks = cct_probe(torch, step.model, probes)
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        m = step.reduce_metrics(step(local))
+        torch.cuda.synchronize()
+        for h in hooks:
+            h.remove()
+        torch.save([p[0].cpu() for p in probes], os.path.join(d, f"cct_bn{g}_rank{r}.pt"))
+        res["steps"][g] = {"seconds": time.perf_counter() - t0,
+                           "launches": kernels.launch_counts(),
+                           "metrics": {k: float(v) for k, v in m.items()}}
+        if r == 0:
+            torch.save({n: p.grad.detach().cpu() for n, p in step.model.named_parameters()},
+                       os.path.join(d, f"grads_bn{g}.pt"))
+        del step, m
+        torch.cuda.empty_cache()
+    # ZeRO-1: three plain steps; after each, the ZeRO step's optimizer
+    # applies the same averaged, clipped gradients. The fp32 step is not
+    # bit-reproducible on the card (some library backwards add atomically),
+    # so the two optimizers are compared on equal gradients; a second plain
+    # step from the same state measures that run-to-run difference.
+    from jperceiver_tpu_torch.engine.optim import set_lr
+
+    off = _ddp_step(inp["weights"], 1, True)
+    on = _ddp_step(inp["weights"], 1, True, zero1=True)
+    t0 = time.perf_counter()
+    for i in range(3):
+        off(local)
+        if i == 0:
+            first = [p.grad.clone() for p in off.params]
+        set_lr(on.optimizer, on.schedule, on.iteration)
+        for p, q in zip(on.params, off.params):
+            p.grad = q.grad.clone()
+        on.optimizer.step()
+        on.iteration += 1
+    torch.cuda.synchronize()
+    res["zero1_seconds"] = time.perf_counter() - t0
+    res["zero1_bit_for_bit"] = all(torch.equal(p, q) for p, q in zip(on.params, off.params))
+    res["zero1_local_moment_elements"] = sum(
+        v.numel() for st in on.optimizer.optim.state.values()
+        for k, v in st.items() if k in ("exp_avg", "exp_avg_sq")) // 2
+    res["param_elements"] = sum(p.numel() for p in on.params)
+    del off, on
+    again = _ddp_step(inp["weights"], 1, True)
+    again(local)
+    res["step_rerun_max_abs_grad_diff"] = max(
+        (p.grad - q).abs().max().item() for p, q in zip(again.params, first))
+    del again, first
+    torch.cuda.empty_cache()
+    res["peak_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    return res
+
+
+def child_cli(torch, d: str) -> dict:
+    """A rank of phase 11(b)/(c): `tools/train.py main(argv)` as torchrun
+    would start it, the validation set cut to `val_scenes` simulated scenes
+    (the factory takes one scene count for both sets), recording the files
+    this rank opened for writing under the work dir."""
+    import builtins
+
+    import jperceiver_tpu_torch.data as data_mod
+    from jperceiver_tpu_torch.ops import cuda as kernels
+    from jperceiver_tpu_torch.tools import train as train_cli
+
+    with open(os.path.join(d, "cli_args.json")) as f:
+        args = json.load(f)
+    work = args["work_dir"]
+    get0 = data_mod.get_dataset
+
+    def get_dataset(cfg, training=True, **kw):
+        ds = get0(cfg, training=training, **kw)
+        if not training:
+            ds.n_scenes = args["val_scenes"]
+        return ds
+
+    wrote = []
+    open0, save0 = builtins.open, torch.save
+
+    def open_rec(file, mode="r", *a, **k):
+        if any(c in mode for c in "wax") and str(file).startswith(work):
+            wrote.append(os.path.relpath(str(file), work))
+        return open0(file, mode, *a, **k)
+
+    def save_rec(obj, f, *a, **k):
+        wrote.append(os.path.relpath(str(f), work))
+        return save0(obj, f, *a, **k)
+
+    data_mod.get_dataset = get_dataset
+    builtins.open, torch.save = open_rec, save_rec
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    try:
+        trainer = train_cli.main(args["argv"])
+        torch.cuda.synchronize()
+    finally:
+        builtins.open, torch.save = open0, save0
+        data_mod.get_dataset = get0
+    dist = torch.distributed
+    return {"rank": dist.get_rank(), "world": dist.get_world_size(),
+            "backend": str(dist.get_backend()), "seconds": time.perf_counter() - t0,
+            "launches": kernels.launch_counts(), "wrote": sorted(set(wrote)),
+            "iteration": trainer.train_step.iteration,
+            "n_val_batches": len(trainer.eval_hook.loader), "device": str(trainer.device),
+            "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9}
+
+
+def child_main(role: str, d: str) -> int:
+    import torch
+
+    sys.path.insert(0, ROOT)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    res = {"step": child_step, "cli": child_cli}[role](torch, d)
+    with open(os.path.join(d, f"{role}_rank{res['rank']}.json"), "w") as f:
+        json.dump(res, f)
+    torch.distributed.destroy_process_group()
+    return 0
+
+
+def phase_ddp(torch, card: str, per_step: dict, n_k3: int) -> dict:
+    """Phase 11: data parallel at the kitti_odom_1024 preset's model
+    (1024^2, occ 256, remat, road branch), B = 3 a rank. The kernels are
+    built (phase 1) before any child starts.
+      (a) two ranks over gloo on the one card, fp32, kernels on: one step
+          for bn_groups 1 and 2 against one process at B = 6 from the same
+          weights, batch and generator seed (so the same dropout and
+          automask draws): losses within rtol 1e-4; each trunk's averaged
+          gradient (L2 over its parameters) within 3x the one-process
+          step's own spread plus 1e-3 of its norm, the spread being the
+          largest of its distances between kernels on and off and under
+          two rounding-level changes of the input pixels (x (1 + 2^-22 u),
+          u uniform in [-1, 1]); each parameter's max-abs distances and the
+          CCT argmax flips are logged; each rank's launches in the step
+          phase 9's a step; over three steps, ZeRO-1's Adam bit for bit
+          the plain Adam on the same gradients (the fp32 step itself is
+          not bit-reproducible on the card; its run-to-run difference is
+          logged), each rank holding about half of Adam's moments;
+      (b) two ranks of `tools/train.py --launcher pytorch --dist_backend
+          gloo`, bf16, 2 epochs of 4 steps, validation on 13 scenes: each
+          rank's launches those of its 8 steps and 7 eval forwards an epoch,
+          rank 0 alone writing checkpoints and the log, n_eval_samples 13,
+          finite losses;
+      (c) one rank of the same CLI on its default backend (NCCL), 1 epoch of
+          2 steps, validation on 3 scenes.
+    Two ranks on one card give no throughput: their times are logged as
+    times, beside the card's name and power limit."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    from jperceiver_tpu_torch.data import synthetic_batch
+    from jperceiver_tpu_torch.models import build_model
+
+    root = tempfile.mkdtemp(prefix="chip_smoke_ddp_")
+    res: dict = {"card": card}
+    t_phase = time.perf_counter()
+    try:
+        # (a) The one-process references at the global batch.
+        torch.manual_seed(0)
+        model = build_model(_ddp_step_cfg(1).model)
+        weights = {k: v.detach().cpu().clone() for k, v in model.state_dict().items()}
+        batch = synthetic_batch(DDP_WORLD * DDP_B, HW, HW, OCC, seed=0)
+        d_a = os.path.join(root, "step")
+        os.makedirs(d_a)
+        torch.save({"weights": weights, "batch": batch}, os.path.join(d_a, "inputs.pt"))
+        # Per bn_groups: kernels on, off, and on with each input pixel moved
+        # by a rounding-level amount (x (1 + 2^-22 u), u uniform in [-1, 1],
+        # two draws): how far the one-process step itself moves under a
+        # change of rounding, which is what two ranks are (other reduction
+        # orders, other library kernels at B = 3). A uniform scale of the
+        # input would not do: the first BatchNorm takes it out.
+        refs = {}
+        nudge = np.random.default_rng(1)
+        for g in (1, 2):
+            for name, on in (("on", True), ("off", False), ("on~1", True), ("on~2", True)):
+                step = _ddp_step(weights, g, on)
+                u = (nudge.uniform(-1, 1, batch["color_aug"].shape) if name.startswith("on~")
+                     else 0.0)
+                b = dict(batch, color_aug=(batch["color_aug"] * (1 + 2.0 ** -22 * u))
+                         .astype(batch["color_aug"].dtype))
+                probes = []
+                hooks = cct_probe(torch, step.model, probes)
+                m = step(b)
+                for h in hooks:
+                    h.remove()
+                refs[g, name] = ({kk: float(v) for kk, v in m.items()},
+                                 {n: p.grad.detach().cpu()
+                                  for n, p in step.model.named_parameters()},
+                                 [p[0].cpu() for p in probes])
+                del step, m
+        del model
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        ranks = _run_children("step", d_a, DDP_WORLD, CHILD_TIMEOUT_S)
+        res["a_seconds"] = time.perf_counter() - t0
+        res["a"] = {"ranks": ranks, "bn_groups": {}}
+        for g in (1, 2):
+            got = torch.load(os.path.join(d_a, f"grads_bn{g}.pt"), weights_only=True)
+            (m_on, g_on, p_on), (_, g_off, _) = refs[g, "on"], refs[g, "off"]
+            # CCT hard-attention argmax flips against the one-process step.
+            p_ddp = [torch.cat(t) for t in zip(*(
+                torch.load(os.path.join(d_a, f"cct_bn{g}_rank{r}.pt"), weights_only=True)
+                for r in range(DDP_WORLD)))]
+            flips = {name: sum(int((a != b).sum()) for a, b in zip(p_on, refs[g, name][2]))
+                     for name in ("off", "on~1", "on~2")}
+            flips["ddp"] = sum(int((a != b).sum()) for a, b in zip(p_on, p_ddp))
+            m_ddp = ranks[0]["steps"][str(g)]["metrics"]
+            loss_rel = {k: abs(m_ddp[k] - w) / abs(w) for k, w in m_on.items() if k != "grad_norm"}
+            # Per trunk (a child of the model): the L2 distance of the two
+            # ranks' gradients to the one-process step's within 3x the
+            # step's own spread (its distance under kernels off, or under
+            # either input nudge) plus 1e-3 of the trunk's gradient norm.
+            # Per parameter, the same distances in max-abs are logged, with
+            # the bound the issue set (3x the on/off distance + 1e-3 of the
+            # parameter's scale).
+            pert = ("off", "on~1", "on~2")
+            rows, trunks = [], {}
+            for n, ref in g_on.items():
+                t = trunks.setdefault(n.split(".")[0], dict.fromkeys(("ddp", "norm") + pert, 0.0))
+                d = got[n] - ref
+                t["ddp"] += float((d * d).sum())
+                t["norm"] += float((ref * ref).sum())
+                dev = {}
+                for k in pert:
+                    dk = refs[g, k][1][n] - ref
+                    t[k] += float((dk * dk).sum())
+                    dev[k] = dk.abs().max().item()
+                e, scale = d.abs().max().item(), ref.abs().max().item()
+                b_issue = 3 * dev["off"] + 1e-3 * scale
+                b_all = 3 * max(dev.values()) + 1e-3 * scale
+                rows.append([e / b_all if b_all else 0.0, n, e, dev, scale,
+                             e / b_issue if b_issue else 0.0])
+            rows.sort(reverse=True)
+            trunk_rows = []
+            for name, t in trunks.items():
+                spread, norm, dist = (max(math.sqrt(t[k]) for k in pert), math.sqrt(t["norm"]),
+                                      math.sqrt(t["ddp"]))
+                bound = 3 * spread + 1e-3 * norm
+                trunk_rows.append([dist / bound if bound else (math.inf if dist else 0.0), name,
+                                   dist, spread, norm])
+            trunk_rows.sort(reverse=True)
+            issue = sorted(((r[5], r[1]) for r in rows), reverse=True)
+            res["a"]["bn_groups"][g] = {
+                "loss_rel_max": max(loss_rel.values()), "worst_trunks": trunk_rows[:5],
+                "worst_params": rows[:5], "cct_argmax_flips": flips,
+                "issue_bound": {"over": sum(r[0] > 1.0 for r in issue), "worst": issue[:4]},
+                "grad_norm": {"ddp": m_ddp["grad_norm"], "one_process": m_on["grad_norm"]},
+                "step_seconds": [r["steps"][str(g)]["seconds"] for r in ranks]}
+            if max(loss_rel.values()) > 1e-4 or trunk_rows[0][0] > 1.0:
+                raise AssertionError(f"ddp (a) bn_groups {g}: losses {loss_rel}, worst trunks "
+                                     f"{trunk_rows[:4]}, worst parameters {rows[:4]}")
+        for r in ranks:
+            for g in ("1", "2"):
+                if r["steps"][g]["launches"] != per_step:
+                    raise AssertionError(f"ddp (a) rank {r['rank']} bn_groups {g} launches "
+                                         f"{r['steps'][g]['launches']}, expected {per_step}")
+            share = r["zero1_local_moment_elements"] / r["param_elements"]
+            if not (r["zero1_bit_for_bit"] and 0.45 <= share <= 0.55):
+                raise AssertionError(f"ddp (a) ZeRO-1 on rank {r['rank']}: bit for bit "
+                                     f"{r['zero1_bit_for_bit']}, moment share {share}")
+        if sum(r["zero1_local_moment_elements"] for r in ranks) != ranks[0]["param_elements"]:
+            raise AssertionError("ddp (a) ZeRO-1: the ranks' moments do not add up to the model")
+        log(f"ddp (a) [{card}]: {json.dumps({k: v for k, v in res['a'].items()})}")
+
+        # (b), (c): the train CLI, as torchrun starts it.
+        def cli(name, world, scenes, epochs, val, backend):
+            d = os.path.join(root, name)
+            os.makedirs(d)
+            work = os.path.join(d, "work")
+            cfg = _preset({"data.name": "simulated", "data.n_scenes": scenes,
+                           "model.compute_dtype": "bfloat16", "total_epochs": epochs,
+                           "log_config.interval": scenes // (world * DDP_B)})
+            cfg_path = _write_config(cfg, os.path.join(d, "cfg.py"))
+            argv = ["--config", cfg_path, "--work_dir", work, "--seed", "0",
+                    "--launcher", "pytorch"] + (["--dist_backend", backend] if backend else [])
+            with open(os.path.join(d, "cli_args.json"), "w") as f:
+                json.dump({"argv": argv, "work_dir": work, "val_scenes": val}, f)
+            t0 = time.perf_counter()
+            out = _run_children("cli", d, world, CHILD_TIMEOUT_S)
+            seconds = time.perf_counter() - t0
+            logs = [json.loads(line) for fn in sorted(os.listdir(work))
+                    if fn.endswith(".log.json") for line in open(os.path.join(work, fn))]
+            return out, logs, seconds
+
+        n_steps = DDP_STEPS * DDP_EPOCHS
+        b, logs, secs = cli("b", DDP_WORLD, DDP_WORLD * DDP_B * DDP_STEPS, DDP_EPOCHS, DDP_VAL,
+                            "gloo")
+        n_fwd = -(-DDP_VAL // DDP_WORLD) * DDP_EPOCHS  # 7 a rank an epoch, the tail padded
+        res["b"] = {"seconds": secs, "ranks": b, "payloads": logs}
+        _check_cli(b, logs, per_step, n_k3, n_steps, n_fwd, DDP_EPOCHS, DDP_VAL, "gloo", "b")
+        log(f"ddp (b) [{card}]: {secs:.1f} s, ranks "
+            f"{[{k: r[k] for k in ('seconds', 'iteration', 'peak_memory_gb')} for r in b]}")
+
+        c, logs, secs = cli("c", 1, DDP_B * 2, 1, 3, None)
+        res["c"] = {"seconds": secs, "ranks": c, "payloads": logs}
+        _check_cli(c, logs, per_step, n_k3, 2, 3, 1, 3, "nccl", "c")
+        log(f"ddp (c) [{card}]: {secs:.1f} s, {c[0]['backend']}, "
+            f"{c[0]['seconds']:.1f} s in the rank")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    res["seconds"] = time.perf_counter() - t_phase
+    return res
+
+
+def _check_cli(ranks, logs, per_step, n_k3, n_steps, n_fwd, epochs, n_val, backend, what):
+    """Phase 11(b)/(c): every rank's launches, iteration and backend; rank 0
+    alone wrote the checkpoints (the start's and one an epoch) and the log;
+    the val payloads count every validation sample once; finite losses."""
+    want = {k: v * n_steps for k, v in per_step.items()}
+    want["conv3x3"] += n_k3 * n_fwd
+    want["maxpool5x5"] += per_step["maxpool5x5_bwd"] * n_fwd
+    ckpts = [os.path.join("checkpoints", f"epoch_{e}.pth.tmp") for e in range(epochs + 1)]
+    for r in ranks:
+        if r["launches"] != want:
+            raise AssertionError(f"ddp ({what}) rank {r['rank']} launches {r['launches']}, "
+                                 f"expected {want}")
+        if r["iteration"] != n_steps or r["backend"] != backend:
+            raise AssertionError(f"ddp ({what}) rank {r['rank']}: iteration {r['iteration']}, "
+                                 f"backend {r['backend']}")
+        wrote = r["wrote"]
+        if r["rank"] == 0:
+            if ([w for w in wrote if w.startswith("checkpoints")] != ckpts
+                    or sum(w.endswith(".log.json") for w in wrote) != 1):
+                raise AssertionError(f"ddp ({what}) rank 0 wrote {wrote}")
+        elif wrote:
+            raise AssertionError(f"ddp ({what}) rank {r['rank']} wrote {wrote}")
+    vals = [p for p in logs if p["mode"] == "val"]
+    trains = [p for p in logs if p["mode"] == "train"]
+    if [p["n_eval_samples"] for p in vals] != [n_val] * epochs:
+        raise AssertionError(f"ddp ({what}) val payloads {vals}")
+    if len(trains) != epochs or not all(math.isfinite(p["loss"]) for p in trains):
+        raise AssertionError(f"ddp ({what}) train payloads {trains}")
+
+
+def phase_tools(torch, card: str) -> dict:
+    """Phase 12: `tools/profile_step.py` for 5 steps of the 1024^2 bf16
+    flagship step, `tools/trace_summary.py` on its trace (K1-K5 and both
+    pool backwards by name, with device time), and `tools/complexity.py`
+    at 1024^2 (its parameter total the model's). The tools print to
+    stderr here."""
+    import contextlib
+    import shutil
+    import tempfile
+
+    from jperceiver_tpu_torch.models import JPerceiver
+    from jperceiver_tpu_torch.tools import complexity, profile_step, trace_summary
+
+    root = tempfile.mkdtemp(prefix="chip_smoke_tools_")
+    res: dict = {"card": card}
+    try:
+        with contextlib.redirect_stdout(sys.stderr):
+            t0 = time.perf_counter()
+            prof = profile_step.main(["--out", root, "--steps", "5"])
+            res["profile_step_s"] = time.perf_counter() - t0
+            summary = trace_summary.main([root, "--steps", "5", "--top", "25"])
+            t0 = time.perf_counter()
+            cx = complexity.main(["--height", str(HW), "--width", str(HW)])
+            res["complexity_s"] = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    names = {"K1": "reproj_fwd", "K2": "reproj_bwd", "K3": "conv3x3_bf16",
+             "K4": "wgrad_bf16", "K5": "maxpool5x5_nhwc", "K5-bwd": "maxpool5x5_bwd_nhwc",
+             "stem-pool-bwd": "maxpool3x3s2_bwd"}
+    found = {kid: {"ms_per_step": sum(v["us"] for n, v in summary["kernels"].items()
+                                      if sub in n) / 5 / 1e3,
+                   "per_step": sum(v["count"] for n, v in summary["kernels"].items()
+                                   if sub in n) / 5}
+             for kid, sub in names.items()}
+    res.update(ms_per_step=prof["ms_per_step"], track=summary["track"],
+               device_ms_per_step=summary["total_ms_per_step"],
+               kernels_per_step=summary["ops_per_step"], hand_kernels=found,
+               complexity_params=cx["total_params"], complexity_gflops=cx["total_flops"] / 1e9)
+    if summary["track"] != "kernel" or not all(v["ms_per_step"] > 0 for v in found.values()):
+        raise AssertionError(f"trace_summary: track {summary['track']}, hand kernels {found}")
+    with torch.device("meta"):
+        n_model = sum(p.numel() for p in JPerceiver(occ_map_size=OCC).parameters())
+    if cx["total_params"] != n_model:
+        raise AssertionError(f"complexity: {cx['total_params']} parameters, the model "
+                             f"{n_model}")
+    log(f"tools [{card}]: {json.dumps(res)}")
+    return res
+
+
 def main() -> int:
     import torch
 
@@ -1734,6 +2241,10 @@ def main() -> int:
     # Phase 10: the tools around the fit, each stage's launches checked there
     # against per_step and the eval forward's sites.
     wf = phase_workflow(torch, train_sites, per_step)
+    # Phases 11-12: data parallel (each rank's step launches per_step) and the
+    # profiling tools.
+    dp = phase_ddp(torch, card, per_step, n_k3_train)
+    tools = phase_tools(torch, card)
 
     def entry(kid, name, src, replaces, count, err, per, bound_by):
         lib = per["library_ms"]
@@ -1776,16 +2287,20 @@ def main() -> int:
                    sp["max_abs_err"], sp["per_step"], sp["bound_by"]),
              max_pool2d_bwd_ms_for_scale=sp["per_step"]["max_pool2d_bwd_ms"]),
     ]}
-    for row in table["kernels"]:  # launches of phase 9's fit and phase 10's stages
+    for row in table["kernels"]:  # launches of phases 9-11
         counter = {"conv3x3_fwd": "conv3x3", "maxpool5x5_fwd": "maxpool5x5"}.get(
             row["name"], row["name"])
         row["fit_launches"] = fl[counter]
         row["workflow_launches"] = {stage: n[counter] for stage, n in wf["launches"].items()}
+        # Per rank, per step: phase 11(a)'s step (bn_groups 1) on each rank.
+        row["ddp_launches"] = {f"rank{r['rank']}": r["steps"]["1"]["launches"][counter]
+                               for r in dp["a"]["ranks"]}
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
     with open(os.path.join(ROOT, "chiprun_out", "chip_smoke.json"), "w") as f:
         json.dump({"card": card, "build_s": build_s, "ptxas": ptxas, "k3_sites": n_k3,
                    "k3": k3, "k5": k5, "stem_pool": sp, "eval": ev, "stream": st, "reproj": rp,
-                   "conv_bwd": cb, "train": tr, "fit": ft, "workflow": wf,
+                   "conv_bwd": cb, "train": tr, "fit": ft, "workflow": wf, "ddp": dp,
+                   "tools": tools,
                    "seconds": time.perf_counter() - t_start, "table": table},
                   f, indent=1)
     print(json.dumps(table), flush=True)
@@ -1796,4 +2311,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if len(sys.argv) == 4 and sys.argv[1] == "--child":  # a rank of phase 11
+        sys.exit(child_main(sys.argv[2], sys.argv[3]))
     sys.exit(main())

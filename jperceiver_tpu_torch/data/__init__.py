@@ -2,7 +2,10 @@
 factory and the loader (the port's own copies of the JAX package's)."""
 
 from .argoverse import Argoverse
+from .aux_datasets import (CityscapesDataset, Eth3dDataset, EurocDataset, NuscenesDataset,
+                           SequenceFrameDataset)
 from .calib import load_odometry_calib, load_raw_calib, read_calib_file
+from .folder import FolderDataset
 from .kitti import KittiDepth, KittiObject, KittiOdometry, KittiRaw
 from .loader import DataLoader, collate
 from .simulated import SimulatedDataset
@@ -11,7 +14,9 @@ from .splits import (get_dataset, readlines, scan_object_split, scan_odometry_sp
 from .synthetic import synthetic_batch
 from .velodyne import generate_depth_map
 
-__all__ = ["Argoverse", "DataLoader", "KittiDepth", "KittiObject", "KittiOdometry",
-           "KittiRaw", "SimulatedDataset", "collate", "generate_depth_map", "get_dataset",
+__all__ = ["Argoverse", "CityscapesDataset", "DataLoader", "Eth3dDataset", "EurocDataset",
+           "FolderDataset", "KittiDepth", "KittiObject", "KittiOdometry", "KittiRaw",
+           "NuscenesDataset", "SequenceFrameDataset", "SimulatedDataset", "collate",
+           "generate_depth_map", "get_dataset",
            "load_odometry_calib", "load_raw_calib", "read_calib_file", "readlines",
            "scan_object_split", "scan_odometry_split", "split_file", "synthetic_batch"]

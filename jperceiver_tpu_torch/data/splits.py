@@ -6,17 +6,14 @@ dataset class, and the file datasets read the split list
 The port ships no split lists: a file dataset needs `data.split_dir`. The
 JAX package's lists (`jperceiver_tpu/data/artifacts/splits`) are in that
 layout, and `scan_odometry_split` / `scan_object_split` (`tools/make_splits`)
-write them from a dataset tree. The simulated dataset needs no files.
+write them from a dataset tree. The simulated dataset needs no files; the
+EuRoC, ETH3D and folder datasets scan their directory.
 """
 
 from __future__ import annotations
 
 import os
 from typing import Sequence
-
-# Datasets of the JAX package's `get_dataset` that the port has not ported.
-_NOT_PORTED = ("euroc", "eth3d", "folder", "cityscape", "nuscenes")
-
 
 def readlines(path: str) -> list[str]:
     with open(path) as f:
@@ -59,10 +56,11 @@ def scan_object_split(data_path: str) -> list[str]:
 def get_dataset(data_cfg, training: bool = True, with_sdf: bool = False,
                 num_class: int = 2):
     """cfg.data -> dataset instance, as the JAX package's `get_dataset`
-    picks it: `name` "simulated" renders scenes; otherwise `type` "static"
-    is KITTI odometry, "static_raw" KITTI raw (or the improved depth of
-    `name` "kitti_depth"), "dynamic" KITTI 3D-object and "Argo_*"
-    Argoverse."""
+    picks it: `name` "simulated" renders scenes; "euroc", "eth3d" and
+    "folder" scan the directory `in_path`; "cityscape" and "nuscenes" read
+    split lists; otherwise `type` "static" is KITTI odometry, "static_raw"
+    KITTI raw (or the improved depth of `name` "kitti_depth"), "dynamic"
+    KITTI 3D-object and "Argo_*" Argoverse."""
     from .argoverse import Argoverse
     from .kitti import KittiDepth, KittiObject, KittiOdometry, KittiRaw
 
@@ -79,10 +77,17 @@ def get_dataset(data_cfg, training: bool = True, with_sdf: bool = False,
             model_type=dtype,
             split=data_cfg.get("split", "odometry"),
         )
-    if name in _NOT_PORTED:
-        raise NotImplementedError(
-            f"dataset '{name}' is not ported to jperceiver_tpu_torch yet "
-            "(ROADMAP.md queue 1: the aux datasets)")
+    if name in ("euroc", "eth3d"):
+        from .aux_datasets import Eth3dDataset, EurocDataset
+
+        cls = EurocDataset if name == "euroc" else Eth3dDataset
+        return cls(data_cfg["in_path"], data_cfg["height"], data_cfg["width"],
+                   frame_ids=tuple(data_cfg.get("frame_ids", (0, -1, 1))), is_train=training)
+    if name == "folder":
+        from .folder import FolderDataset
+
+        return FolderDataset(data_cfg["in_path"], data_cfg["height"], data_cfg["width"],
+                             intrinsics=data_cfg.get("intrinsics", "kitti"))
 
     split_dir = data_cfg.get("split_dir")
     if split_dir is None:
@@ -99,9 +104,18 @@ def get_dataset(data_cfg, training: bool = True, with_sdf: bool = False,
             f"split '{data_cfg['split']}' has no "
             f"{'train' if training else 'val'} list at {sfile}; "
             f"available splits under {split_dir}: {have}")
+    filenames = readlines(sfile)
+    if name == "cityscape":
+        from .aux_datasets import CityscapesDataset
+
+        return CityscapesDataset(data_cfg["in_path"], filenames, data_cfg["height"],
+                                 data_cfg["width"],
+                                 frame_ids=tuple(data_cfg.get("frame_ids", (0, -1, 1))),
+                                 is_train=training,
+                                 img_ext=".png" if data_cfg.get("png", True) else ".jpg")
     common = dict(
         data_path=data_cfg["in_path"],
-        filenames=readlines(sfile),
+        filenames=filenames,
         height=data_cfg["height"],
         width=data_cfg["width"],
         frame_ids=tuple(data_cfg.get("frame_ids", (0, -1, 1))),
@@ -109,6 +123,10 @@ def get_dataset(data_cfg, training: bool = True, with_sdf: bool = False,
         with_sdf=with_sdf,
         num_class=num_class,
     )
+    if name == "nuscenes":
+        from .aux_datasets import NuscenesDataset
+
+        return NuscenesDataset(seg_class=data_cfg.get("seg_class", "vehicle"), **common)
     if dtype == "static":
         return KittiOdometry(raw_calib_root=data_cfg.get("raw_calib_root"), **common)
     if dtype == "static_raw":

@@ -57,21 +57,33 @@ def latest_epoch(work_dir: str) -> int | None:
 
 def save_checkpoint(work_dir: str, step, epoch: int, max_to_keep: int = 5) -> str:
     """Write the state of `step` (a `TrainStep`) after `epoch` epochs, and
-    delete all but the newest `max_to_keep` checkpoints. Returns the path."""
+    delete all but the newest `max_to_keep` checkpoints. Returns the path.
+
+    Under a process group every rank calls it: a ZeRO-1 optimizer first
+    gathers its shards to rank 0 (a collective), rank 0 alone writes, and
+    a barrier holds every rank until the file is in place. The model is
+    saved as the module, under the `Baseline` keys (no DDP `module.`)."""
+    from ..parallel import barrier, rank
+
     path = checkpoint_path(work_dir, epoch)
-    os.makedirs(os.path.dirname(path), exist_ok=True)
-    payload = {
-        "state_dict": step.model.state_dict(),
-        "optimizer": step.optimizer.state_dict(),
-        "iteration": step.iteration,
-        "generator": step.generator.get_state(),
-        "epoch": epoch,
-    }
-    tmp = path + ".tmp"
-    torch.save(payload, tmp)
-    os.replace(tmp, path)
-    for old in _epochs(work_dir)[:-max_to_keep] if max_to_keep > 0 else []:
-        os.remove(checkpoint_path(work_dir, old))
+    opt = step.optimizer
+    if hasattr(opt, "consolidate_state_dict"):  # ZeroRedundancyOptimizer
+        opt.consolidate_state_dict(to=0)
+    if rank() == 0:
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        payload = {
+            "state_dict": step.model.state_dict(),
+            "optimizer": opt.state_dict(),
+            "iteration": step.iteration,
+            "generator": step.generator.get_state(),
+            "epoch": epoch,
+        }
+        tmp = path + ".tmp"
+        torch.save(payload, tmp)
+        os.replace(tmp, path)
+        for old in _epochs(work_dir)[:-max_to_keep] if max_to_keep > 0 else []:
+            os.remove(checkpoint_path(work_dir, old))
+    barrier()
     return path
 
 
@@ -83,7 +95,8 @@ def restore_checkpoint(work_dir: str, step, epoch: int | None = None) -> int:
     """Restore the model, optimizer, iteration and generator of `step` in
     place from the checkpoint of `epoch` (default: the newest) under
     `work_dir`; returns its epoch. Raises FileNotFoundError when there is
-    none."""
+    none. Under a process group every rank restores from the same file (a
+    ZeRO-1 optimizer keeps its own share of the state)."""
     epoch = latest_epoch(work_dir) if epoch is None else epoch
     if epoch is None or not os.path.isfile(checkpoint_path(work_dir, epoch)):
         raise FileNotFoundError(f"no checkpoint under {work_dir}"

@@ -17,13 +17,14 @@ from typing import Iterable
 import numpy as np
 import torch
 
+from .. import parallel as dist
 from ..evaluation.metrics import AverageMeter, compute_depth_errors, mean_iu, mean_precision
 from .infer import make_eval_step
 
 MIN_DEPTH, MAX_DEPTH = 1e-3, 80.0  # `eval_hooks.py:14-15`
 DEPTH_KEYS = ["abs_rel", "sq_rel", "rmse", "rmse_log", "a1", "a2", "a3", "ratio"]
-# The fixed key list of a cross-process sum (data parallel, not ported yet):
-# every process contributes every key, whether its shard gave it or not.
+# The fixed key list of the ranks' sum under data parallel: every rank
+# contributes every key, whether its shard gave it or not.
 SUM_KEYS = DEPTH_KEYS + ["road_iou", "road_map", "vehicle_iou", "vehicle_map"]
 _ROAD_TYPES = ("static", "static_raw", "Argo_static", "Argo_both")
 _VEHICLE_TYPES = ("dynamic", "Argo_dynamic", "Argo_both")
@@ -69,7 +70,13 @@ class EvalHook:
     `type` scores, `n_eval_samples` (the samples the `_valid` mask keeps)
     and `fps` (images over the forwards' seconds, the device synchronised
     before each reading of the clock). The model is the step's own, so
-    `step` is not read."""
+    `step` is not read.
+
+    Under a process group each rank evaluates its shard of the loader
+    (`process_index`/`process_count`, the padded tail masked by `_valid`);
+    the metrics' sums and counts and `n_eval_samples` are all-reduced (a
+    tensor on the model's device), so every rank returns the summary of the
+    whole dataset, each sample counted once. `fps` stays the rank's own."""
 
     def __init__(self, model, val_loader: Iterable, cfg, with_depth: bool = True,
                  with_layout: bool = True, max_batches: int | None = None, device=None):
@@ -137,6 +144,14 @@ class EvalHook:
                         upd(f"{prefix}_map", prec[1])
 
         summary = {k: m.avg for k, m in meters.items()}
+        if dist.is_distributed():
+            sums = [[meters[k].sum if k in meters else 0.0 for k in SUM_KEYS] + [n_valid],
+                    [meters[k].count if k in meters else 0 for k in SUM_KEYS] + [1]]
+            tot = dist.global_sum(torch.tensor(sums, dtype=torch.float64,
+                                               device=self.device)).cpu()
+            summary = {k: float(tot[0, i] / tot[1, i])
+                       for i, k in enumerate(SUM_KEYS) if tot[1, i] > 0}
+            n_valid = int(tot[0, -1])
         # Every dataset sample is evaluated once: the loader pads the tail
         # and marks the pads invalid, so this equals len(dataset).
         summary["n_eval_samples"] = n_valid

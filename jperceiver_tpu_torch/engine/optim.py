@@ -137,12 +137,19 @@ class AdamLowPrecisionMu(torch.optim.Optimizer):
 
 
 def build_optimizer(cfg, params: Iterable[torch.nn.Parameter],
-                    steps_per_epoch: int, labels: Sequence[str] | None = None):
+                    steps_per_epoch: int, labels: Sequence[str] | None = None,
+                    zero1: bool = False):
     """cfg -> (optimizer, schedule, clip max-norm or None). The optimizer's
     lr is set from the schedule before each step by the caller
     (`set_lr`). `labels`, one per parameter in order (`param_labels`), is
     needed when `optimizer.paramwise_options` is set: the biases labelled
-    "bias" then go to a group whose `lr_mult` is `bias_lr_mult`."""
+    "bias" then go to a group whose `lr_mult` is `bias_lr_mult`.
+
+    `zero1` (the JAX package's `zero1_state_shardings`, turned on there by
+    an argument too) wraps the optimizer in `ZeroRedundancyOptimizer`: each
+    rank keeps the moments of its share of the parameters, updates those
+    and broadcasts them. The groups and their `lr_mult` are kept; `set_lr`
+    sets the wrapper's groups, which it hands on at each step."""
     opt_cfg = cfg.get("optimizer", None) or {"type": "Adam", "lr": 1e-4}
     opt_type = opt_cfg.get("type", "Adam").lower()
     wd = float(opt_cfg.get("weight_decay", 0.0))
@@ -165,18 +172,28 @@ def build_optimizer(cfg, params: Iterable[torch.nn.Parameter],
     if opt_type == "adam":
         # optax.adam / adamw defaults: b1 0.9, b2 0.999, eps 1e-8.
         if mu_dtype is not None:
-            opt = AdamLowPrecisionMu(groups, sched(0), getattr(torch, mu_dtype)
-                                     if isinstance(mu_dtype, str) else mu_dtype,
-                                     weight_decay=wd)
+            cls, kw = AdamLowPrecisionMu, dict(
+                lr=sched(0), weight_decay=wd,
+                mu_dtype=getattr(torch, mu_dtype) if isinstance(mu_dtype, str) else mu_dtype)
         elif wd:
-            opt = torch.optim.AdamW(groups, lr=sched(0), weight_decay=wd, eps=1e-8)
+            cls, kw = torch.optim.AdamW, dict(lr=sched(0), weight_decay=wd, eps=1e-8)
         else:
-            opt = torch.optim.Adam(groups, lr=sched(0), eps=1e-8)
+            cls, kw = torch.optim.Adam, dict(lr=sched(0), eps=1e-8)
     elif opt_type == "sgd":
-        opt = torch.optim.SGD(groups, lr=sched(0),
-                              momentum=float(opt_cfg.get("momentum", 0.9)))
+        cls, kw = torch.optim.SGD, dict(lr=sched(0), momentum=float(opt_cfg.get("momentum", 0.9)))
     else:
         raise ValueError(f"unsupported optimizer: {opt_type}")
+    if zero1:
+        from torch.distributed.optim import ZeroRedundancyOptimizer
+
+        from ..parallel import is_distributed
+
+        if not is_distributed():
+            raise ValueError("zero1 shards the optimizer state over a process group; "
+                             "there is none (init_distributed)")
+        opt = ZeroRedundancyOptimizer(groups, optimizer_class=cls, **kw)
+    else:
+        opt = cls(groups, **kw)
     clip = None
     oc = cfg.get("optimizer_config", None)
     if oc and oc.get("grad_clip"):

@@ -8,6 +8,13 @@ trace.
 
 There is no autocast: the model casts to its compute dtype where the JAX
 modules do, and the outputs, geometry and losses are fp32.
+
+Under a process group (`parallel.init_distributed`) the step is data
+parallel, as the JAX step is over its mesh: the model runs inside
+`DistributedDataParallel`, each rank on its shard of the global batch, and
+BatchNorm, the two batch-wide loss ratios and the random draws are those of
+the global batch (`parallel/dist.py`), so a W-rank step at B a rank is the
+one-process step at W * B.
 """
 
 from __future__ import annotations
@@ -20,9 +27,10 @@ from typing import Callable, Iterable, Iterator
 
 import torch
 
+from .. import parallel as dist
 from .._device import resolve_device
 from ..losses.multitask import compute_losses, total_loss
-from ..models.common import set_kernels
+from ..models.common import set_bn_groups, set_kernels
 from .infer import conv_gates_from_cfg
 from .optim import build_optimizer, clip_by_global_norm_, global_norm, param_labels, set_lr
 
@@ -51,19 +59,45 @@ class TrainStep:
     device. It holds what a checkpoint of the run needs: `model`,
     `optimizer`, `iteration` (steps taken, which the schedule reads) and
     `generator` (dropout and the automask noise).
+
+    Under a process group `model` stays the module itself and `ddp` is its
+    `DistributedDataParallel` wrapper, which runs the forward: the clip
+    reads the gradients DDP has averaged (the global norm), and the losses
+    returned are this rank's shares (`reduce_metrics` gives their mean,
+    the global batch's values).
     """
 
-    def __init__(self, model, cfg, device, steps_per_epoch: int, seed: int, optim_cfg=None):
+    def __init__(self, model, cfg, device, steps_per_epoch: int, seed: int, optim_cfg=None,
+                 zero1: bool = False):
         self.device = device
         self.model = model.to(device).train()
         self.cfg = cfg
         set_kernels(model, *conv_gates_from_cfg(cfg))
+        set_bn_groups(model, cfg.get("bn_groups", 1))
+        self.ddp = model
+        if dist.is_distributed():
+            from torch.nn.parallel import DistributedDataParallel
+
+            from ..models.jperceiver import JPerceiver
+
+            # A branch built without a loss (skip_inactive_branch=False on a
+            # one-branch type) gives its parameters no gradient.
+            scored = JPerceiver.branches_from_cfg({"type": cfg.get("type", "static")})
+            unused = getattr(model, "branches", scored) != scored
+            # Running statistics stay each rank's own (BatchNorm2d keeps
+            # them equal), not rank 0's broadcast.
+            ids = None
+            if device.type == "cuda":
+                ids = [torch.cuda.current_device() if device.index is None else device.index]
+            self.ddp = DistributedDataParallel(
+                model, device_ids=ids,
+                broadcast_buffers=False, find_unused_parameters=unused)
         named = [(n, p) for n, p in model.named_parameters() if p.requires_grad]
         labels = param_labels(model)
         self.params = [p for _, p in named]
         self.optimizer, self.schedule, self.clip = build_optimizer(
             cfg if optim_cfg is None else optim_cfg, self.params, steps_per_epoch,
-            labels=[labels[n] for n, _ in named])
+            labels=[labels[n] for n, _ in named], zero1=zero1)
         self.generator = torch.Generator(device=device).manual_seed(seed)
         self.iteration = 0
 
@@ -71,7 +105,7 @@ class TrainStep:
         batch = batch_to(batch, self.device)
         set_lr(self.optimizer, self.schedule, self.iteration)
         self.optimizer.zero_grad(set_to_none=True)
-        outputs = self.model(batch, train=True, generator=self.generator)
+        outputs = self.ddp(batch, train=True, generator=self.generator)
         losses = compute_losses(outputs, batch, self.cfg, noise=noise, generator=self.generator)
         loss = total_loss(losses)
         loss.backward()
@@ -86,9 +120,18 @@ class TrainStep:
         metrics["grad_norm"] = norm
         return metrics
 
+    @staticmethod
+    def reduce_metrics(metrics: dict[str, torch.Tensor]) -> dict[str, torch.Tensor]:
+        """The mean of each metric over the ranks (one all-reduce; every
+        rank calls it): the global batch's losses. One process: `metrics`."""
+        if not dist.is_distributed():
+            return metrics
+        mean = dist.all_reduce_mean(torch.stack([v.double() for v in metrics.values()]))
+        return dict(zip(metrics, mean))
+
 
 def make_train_step(model, cfg, device=None, *, steps_per_epoch: int,
-                    seed: int = 0, optim_cfg=None) -> TrainStep:
+                    seed: int = 0, optim_cfg=None, zero1: bool = False) -> TrainStep:
     """Returns the `TrainStep` of `model` on `device` (CUDA by default;
     raises when there is no card unless the caller asks for the CPU):
     `step(batch, noise=None) -> metrics`. The losses read `cfg`, the model
@@ -105,9 +148,13 @@ def make_train_step(model, cfg, device=None, *, steps_per_epoch: int,
     from one generator on the device seeded with `seed`; `noise` replaces
     the automask draw.
     K3's gates follow the cfg keys `use_pallas_conv(_deep)` as in the eval
-    step.
+    step, BatchNorm's groups `bn_groups` (default 1, the global batch).
+    Under a process group the step is data parallel (DDP, every rank
+    seeded alike); `zero1` shards Adam's moments over the ranks
+    (`build_optimizer`).
     """
-    return TrainStep(model, cfg, resolve_device(device), steps_per_epoch, seed, optim_cfg)
+    return TrainStep(model, cfg, resolve_device(device), steps_per_epoch, seed, optim_cfg,
+                     zero1)
 
 
 class Trainer:
@@ -128,6 +175,9 @@ class Trainer:
     Trainer; here the step holds it). A config without `model` raises.
 
     `seed` seeds the step's generator (dropout, the automask noise).
+    Under a process group every rank runs the loop on its shard of each
+    epoch; the train payloads carry the ranks' mean of each metric,
+    all-reduced at log steps only.
 
     `data_wait_s` holds, per epoch, the host seconds the loop waited for
     each batch from the prefetch queue (the last entry: the wait for its
@@ -244,11 +294,14 @@ class Trainer:
         breaks the context (an illegal address, a device-side assert) fails
         every later CUDA call in the process, and the restored step with
         it; only a new process recovers from that (`tools/train.py
-        --resume_from`).
+        --resume_from`). Under a process group every rank restores; a
+        failure on one rank alone leaves the others in their next
+        collective until its timeout fails them too.
         """
         from .checkpoint import latest_epoch, restore_checkpoint, save_checkpoint
 
-        if latest_epoch(work_dir) is None:
+        # Rank 0 decides: every rank takes part in a save.
+        if dist.rank0_value(latest_epoch(work_dir) is None):
             save_checkpoint(work_dir, self.train_step, start_epoch)
         restarts = 0
         while True:
@@ -285,6 +338,7 @@ class Trainer:
                 if prof is not None and i == _PROFILE_STEPS[1]:
                     prof = self._stop_profile(prof)
                 if i % self.log_interval == 0:
+                    metrics = self.train_step.reduce_metrics(metrics)
                     self.log_fn({"mode": "train", "epoch": epoch + 1, "iter": i,
                                  **{str(k): float(v) for k, v in metrics.items()}})
             if prof is not None:
@@ -314,7 +368,8 @@ class Trainer:
         self._sync()
         prof.stop()
         os.makedirs(self.profile_dir, exist_ok=True)
+        rank = f"_rank{dist.rank()}" if dist.world_size() > 1 else ""
         prof.export_chrome_trace(os.path.join(
-            self.profile_dir, "steps_%d_%d.trace.json" % (_PROFILE_STEPS[0],
-                                                          _PROFILE_STEPS[1] - 1)))
+            self.profile_dir, "steps_%d_%d%s.trace.json" % (_PROFILE_STEPS[0],
+                                                            _PROFILE_STEPS[1] - 1, rank)))
         return None

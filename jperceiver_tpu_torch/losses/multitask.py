@@ -19,6 +19,7 @@ from typing import Any, Mapping
 
 import torch
 
+from .. import parallel as dist
 from ..ops.cuda import reproj_min, reproj_min_automask
 from ..ops.geometry import backproject, disp_to_depth, project
 from ..ops.photometric import reprojection_loss
@@ -32,8 +33,12 @@ _GARG_CROP = (153, 371, 44, 1197)
 
 
 def _masked_abs_rel(pred, gt, mask):
+    """The abs-rel over the mask's support of the global batch. Under a
+    process group the denominator is the ranks' sum (the mask carries no
+    gradient) and the numerator is scaled by the world size, so that DDP's
+    average of the ranks' gradients is the gradient of the global ratio."""
     num = ((gt - pred).abs() / gt.clamp_min(1e-6) * mask).sum()
-    return num / mask.sum().clamp_min(1.0)
+    return num * dist.world_size() / dist.global_sum(mask.sum()).clamp_min(1.0)
 
 
 def _scale_loss(depth_pred, scale_label, model_type: str):
@@ -154,7 +159,8 @@ def compute_losses(outputs: Mapping[str, torch.Tensor],
     use_kernel = True if use_kernel == "auto" else bool(use_kernel)
     if use_kernel:
         targ = target
-        if reproj_operand_bf16(cfg, use_kernel, b):
+        # "auto" reads the global batch, as JAX does on the sharded array.
+        if reproj_operand_bf16(cfg, use_kernel, b * dist.world_size()):
             targ = targ.to(torch.bfloat16)
         pstack = torch.stack([all_preds[f] for f in fids], 2)  # (B, S, F, 3, H, W)
         pstack = pstack.transpose(0, 1).to(targ.dtype)
@@ -174,8 +180,10 @@ def compute_losses(outputs: Mapping[str, torch.Tensor],
             n_scales, n_f, b, height, width)
     if automask:
         if noise is None:
-            noise = torch.randn((n_scales, n_f, b, height, width), generator=generator,
-                                device=dev) * 1e-5
+            # Drawn for the global batch; this rank keeps its rows.
+            noise = dist.rank_rows(lambda shape: torch.randn(
+                shape, generator=generator, device=dev), (n_scales, n_f, b, height, width),
+                dim=2) * 1e-5
 
     img_pyr = target
     for si, scale in enumerate(scales):

@@ -17,6 +17,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from .. import parallel as dist
 from ..ops.cuda import conv3x3_fwd, maxpool5x5
 from ..ops.cuda.conv3x3 import conv_site_eligible
 from ..ops.padding import reflect_pad
@@ -35,23 +36,70 @@ class BatchNorm2d(nn.BatchNorm2d):
     recompute of a checkpointed trunk, `frozen_running_stats`), training
     normalizes by the batch statistics and leaves the running ones as they
     are.
+
+    The batch is the global one, as the JAX package's BatchNorm takes it
+    over the sharded array. `groups` (`set_bn_groups`, the JAX package's
+    `per_replica_bn`) splits it:
+      - one process, G groups: statistics per contiguous block of B/G
+        samples; the running statistics update with their average over
+        the groups;
+      - under a process group, `groups` 1: E[x] and E[x^2] are the
+        all-reduced means of the ranks' (with a gradient), so every rank
+        normalizes by the statistics of the global batch;
+      - under a process group, `groups` equal to the world size: each rank
+        normalizes by its own batch (the reference's per-GPU BN under DDP);
+        the running statistics update with the ranks' average, all-reduced
+        and detached, so they stay equal on every rank.
     """
 
     update_stats = True
+    groups = 1
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         xf = x.to(torch.promote_types(x.dtype, torch.float32))
-        if self.training:
-            mean = xf.mean((0, 2, 3))
-            var = torch.maximum((xf * xf).mean((0, 2, 3)) - mean * mean,
-                                mean.new_zeros(()))
-            if self.update_stats:
-                self._update_running(mean.detach(), var.detach())
+        if not self.training:
+            return self._normalize(xf, self.running_mean, self.running_var).to(x.dtype)
+        distributed = dist.is_distributed()
+        if self.groups > 1 and not distributed:
+            return self._grouped(xf).to(x.dtype)
+        if distributed and self.groups == 1:
+            # E[x] and E[x^2] of the global batch, with a gradient.
+            stats = torch.stack([xf.mean((0, 2, 3)), (xf * xf).mean((0, 2, 3))])
+            mean, mean_sq = dist.all_reduce_sum(stats) / dist.world_size()
+            var = torch.maximum(mean_sq - mean * mean, mean.new_zeros(()))
         else:
-            mean, var = self.running_mean, self.running_var
+            mean, var = self._moments(xf)
+        if self.update_stats:
+            running = torch.stack([mean, var]).detach()
+            if distributed and self.groups > 1:  # each rank's own: their average
+                running = dist.all_reduce_mean(running)
+            self._update_running(running[0], running[1])
+        return self._normalize(xf, mean, var).to(x.dtype)
+
+    def _grouped(self, xf: torch.Tensor) -> torch.Tensor:
+        """One process, `groups` contiguous blocks of the batch, each
+        normalized by its own moments; the running statistics update with
+        the blocks' average."""
+        g = self.groups
+        if xf.shape[0] % g:
+            raise ValueError(f"BatchNorm2d: batch {xf.shape[0]} not divisible by {g} groups")
+        xg = xf.reshape(g, xf.shape[0] // g, *xf.shape[1:])
+        mean, var = self._moments(xg, (1, 3, 4))
+        if self.update_stats:
+            self._update_running(mean.detach().mean(0), var.detach().mean(0))
+        return self._normalize(xg, mean[:, None], var[:, None]).reshape(xf.shape)
+
+    @staticmethod
+    def _moments(xf: torch.Tensor, dims=(0, 2, 3)):
+        mean = xf.mean(dims)
+        var = torch.maximum((xf * xf).mean(dims) - mean * mean, mean.new_zeros(()))
+        return mean, var
+
+    def _normalize(self, xf, mean, var):
+        """(x - mean) * (rsqrt(var + eps) * scale) + bias; `mean` and `var`
+        are (..., C) and broadcast over the trailing (C, H, W)."""
         mul = torch.rsqrt(var + self.eps) * self.weight
-        y = (xf - mean[:, None, None]) * mul[:, None, None] + self.bias[:, None, None]
-        return y.to(x.dtype)
+        return (xf - mean[..., None, None]) * mul[..., None, None] + self.bias[:, None, None]
 
     @torch.no_grad()
     def _update_running(self, mean: torch.Tensor, var: torch.Tensor) -> None:
@@ -59,6 +107,21 @@ class BatchNorm2d(nn.BatchNorm2d):
         self.running_mean.mul_(1.0 - m).add_(mean, alpha=m)
         self.running_var.mul_(1.0 - m).add_(var, alpha=m)
         self.num_batches_tracked.add_(1)
+
+
+def set_bn_groups(model: nn.Module, groups: int) -> None:
+    """`cfg.bn_groups` (the JAX package's `per_replica_bn`) on every
+    `BatchNorm2d` of `model`: 1, the statistics of the global batch, or G
+    groups. Under a process group G must be 1 or the world size (each
+    rank's own batch); any other count raises."""
+    groups = int(groups)
+    w = dist.world_size()
+    if groups < 1 or (dist.is_distributed() and groups not in (1, w)):
+        raise ValueError(f"bn_groups {groups}: under {w} rank(s) it must be 1 or {w}"
+                         if dist.is_distributed() else f"bn_groups {groups} must be >= 1")
+    for m in model.modules():
+        if isinstance(m, BatchNorm2d):
+            m.groups = groups
 
 
 @contextlib.contextmanager
@@ -78,9 +141,12 @@ def frozen_running_stats(module: nn.Module):
 def dropout(x: torch.Tensor, rate: float,
             generator: torch.Generator | None) -> torch.Tensor:
     """flax `nn.Dropout`: keep each element with probability 1 - rate and
-    scale it by 1 / (1 - rate); the draw comes from `generator`."""
+    scale it by 1 / (1 - rate); the draw comes from `generator`. Under a
+    process group the mask is drawn for the global batch and this rank
+    keeps its rows, as JAX draws one key over the global array."""
     keep = 1.0 - rate
-    mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
+    mask = dist.rank_rows(lambda shape: torch.rand(shape, generator=generator,
+                                                   device=x.device), x.shape) < keep
     return torch.where(mask, x / keep, 0)
 
 

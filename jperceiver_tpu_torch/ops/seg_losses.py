@@ -13,6 +13,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from ..parallel import global_sum, world_size
+
 
 def _onehot(labels: torch.Tensor, num_classes: int, dtype) -> torch.Tensor:
     """(B, H, W) -> (B, C, H, W) one-hot in `dtype`."""
@@ -60,12 +62,15 @@ def focal_loss(logits, labels, alpha: float = 0.25, gamma: float = 2.0,
 
 
 def weighted_cross_entropy(logits, labels, class_weight):
-    """torch `nn.CrossEntropyLoss(weight=w)`: the weighted mean NLL."""
+    """torch `nn.CrossEntropyLoss(weight=w)`: the weighted mean NLL over the
+    global batch. Under a process group the weights' sum (no gradient) is
+    the ranks' and the numerator is scaled by the world size, so that DDP's
+    average of the gradients is the gradient of the global mean."""
     logp = logits.log_softmax(1)
     lab = labels.long()
     nll = -logp.gather(1, lab[:, None])[:, 0]
     w = class_weight.to(logp.dtype)[lab]
-    return (w * nll).sum() / w.sum()
+    return (w * nll).sum() * world_size() / global_sum(w.sum())
 
 
 def boundary_loss(logits, sdf):

@@ -304,6 +304,15 @@ def test_get_dataset_matches_jax(fake_odom, tmp_path):  # noqa: F811
         pdata.get_dataset(odo, training=False)
     with pytest.raises(ValueError, match="split_dir"):
         pdata.get_dataset(dict(odo, split_dir=None))
-    for name in ("euroc", "eth3d", "folder", "cityscape", "nuscenes"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+    # The aux datasets: cityscape and nuscenes read the split list, euroc,
+    # eth3d and folder scan `in_path` (here a KITTI tree, which has none of
+    # their folders); tests/test_torch_aux_datasets.py holds their samples.
+    for name, cls in (("cityscape", pdata.CityscapesDataset),
+                      ("nuscenes", pdata.NuscenesDataset)):
+        got = pdata.get_dataset(dict(odo, name=name), training=True)
+        assert type(got) is cls and got.filenames == want.filenames
+    for name in ("euroc", "eth3d"):
+        with pytest.raises(FileNotFoundError):
             pdata.get_dataset(dict(odo, name=name))
+    got = pdata.get_dataset(dict(odo, name="folder"))
+    assert isinstance(got, pdata.FolderDataset) and len(got) == 0

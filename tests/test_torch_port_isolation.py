@@ -37,11 +37,13 @@ def test_port_files_found():
     "evaluation/metrics.py", "evaluation/transforms.py", "evaluation/trajectory.py",
     "evaluation/kitti_odometry.py", "tools/train.py", "tools/eval_depth.py",
     "tools/draw_odometry.py", "tools/acceptance.py", "tools/plot_trajectory.py",
-    "tools/make_splits.py", "tools/video_demo.py"])
+    "tools/make_splits.py", "tools/video_demo.py", "parallel/__init__.py", "parallel/dist.py",
+    "data/aux_datasets.py", "data/folder.py", "tools/complexity.py", "tools/profile_step.py",
+    "tools/trace_summary.py"])
 def test_config_data_engine_modules_checked(module):
-    """The config, data, engine, evaluation and tools modules, which copy
-    JAX-package modules (some of which import no JAX), are among the files
-    checked."""
+    """The config, data, engine, evaluation, parallel and tools modules,
+    which copy JAX-package modules (some of which import no JAX), are among
+    the files checked."""
     assert ROOT / "jperceiver_tpu_torch" / module in FILES
 
 
