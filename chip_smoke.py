@@ -40,7 +40,9 @@ Phases, each of which raises on failure:
      timed beside cuDNN's conv2d_input / conv2d_weight, with each site's
      share of its bound; K4 run twice and held bit for bit; and bf16 at
      phase 9's B=3 (K4 also against float64: within 2x the plain version's
-     distance at every site) and K4 at 513 -> 256 @ 256^2 at B=8, untimed;
+     distance at every site; the ratio is logged at B=1 too) and K4 at
+     513 -> 256 @ 256^2 at B=8, untimed; every timed row logs the spins
+     its readings were queued behind (`time_ms`, `take_spins`);
   8. the flagship training step at 1024^2 (bench.py's configuration: road
      branch, B=1, Adam, clip 35), random weights from a seed: fp32 with the
      kernels on against off, both against the step in float64 (losses and
@@ -124,6 +126,10 @@ PEAK_BF16, PEAK_FP32, HBM_BYTES_S = 989e12, 67e12, 3.35e12
 # Cycles of torch.cuda._sleep per second the host takes to enqueue the
 # timed calls: 1.5x the H100's 1.98 GHz boost clock, so the spin outlasts it.
 SPIN_CYCLES_PER_S = 3e9
+# How often `time_ms` times again, behind a spin twice as long and with half
+# the calls, a reading whose spin ended before its calls were queued.
+SPIN_RETRIES = 5
+SPINS: list[dict] = []  # the spin of every `time_ms` reading, until `take_spins`
 K3_SRC = "jperceiver_tpu_torch/ops/cuda/csrc/conv3x3.cu"
 K5_SRC = "jperceiver_tpu_torch/ops/cuda/csrc/maxpool5x5.cu"
 K4_SRC = "jperceiver_tpu_torch/ops/cuda/csrc/conv3x3_wgrad.cu"
@@ -172,9 +178,17 @@ def enqueue_ms(torch, fn, reps: int = 20, warmup: int = 3) -> float:
 
 def time_ms(torch, fn, reps: int = 20, warmup: int = 3) -> float:
     """Mean device time of fn() over `reps` back-to-back calls. The calls
-    are queued behind a spin kernel that lasts longer than the host takes to
-    enqueue them, so the events time the device running them one after
-    another, not the host enqueueing them."""
+    are queued behind a spin kernel sized to outlast the host's enqueue of
+    them, so the events time the device running them one after another,
+    not the host enqueueing them. Once the calls are queued, the start event
+    must still be pending (the spin still running); if it has completed,
+    the reading would hold host time, and the calls are timed again behind
+    a spin twice as long, and half as many of them (the device's launch
+    queue holds about a thousand operations: a plain version of many small
+    operations a call fills it, and the host then waits on the spin
+    whatever its length), up to SPIN_RETRIES times; then it raises. The
+    spin and the number of calls each reading used are appended to SPINS
+    (`take_spins`)."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
@@ -183,15 +197,38 @@ def time_ms(torch, fn, reps: int = 20, warmup: int = 3) -> float:
         fn()
     enqueue_s = time.perf_counter() - t0
     torch.cuda.synchronize()
-    torch.cuda._sleep(int(SPIN_CYCLES_PER_S * enqueue_s) + 1_000_000)
+    cycles = int(SPIN_CYCLES_PER_S * enqueue_s) + 1_000_000
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / reps
+    for attempt in range(SPIN_RETRIES + 1):
+        torch.cuda._sleep(cycles)
+        start.record()
+        for _ in range(reps):
+            fn()
+        spin_outlasted = not start.query()
+        end.record()
+        end.synchronize()
+        if spin_outlasted:
+            SPINS.append({"spin_cycles": cycles, "retries": attempt, "reps": reps,
+                          "enqueue_ms": enqueue_s * 1e3})
+            return start.elapsed_time(end) / reps
+        cycles *= 2
+        reps = max(1, reps // 2)
+    raise RuntimeError(f"time_ms: a spin of {cycles // 2} cycles ended before {reps} calls "
+                       f"were queued, {SPIN_RETRIES} retries")
+
+
+def take_spins() -> dict:
+    """The spins of the `time_ms` calls since the last take: how many
+    readings, the longest spin, the most retries any needed and the fewest
+    calls any timed. Every reading in it was queued behind a spin that was
+    still running."""
+    out = {"readings": len(SPINS),
+           "max_spin_cycles": max((s["spin_cycles"] for s in SPINS), default=0),
+           "max_retries": max((s["retries"] for s in SPINS), default=0),
+           "min_reps": min((s["reps"] for s in SPINS), default=0)}
+    SPINS.clear()
+    return out
 
 
 def bound_ms(n_bytes: float, n_ops: float, peak: float) -> tuple[float, str]:
@@ -279,6 +316,7 @@ def phase_k3(torch, sites, train_sites) -> dict:
                             tot[k] += count * row[k]
                         ops_t += count * n_ops / peak
                         bytes_t += count * n_bytes / HBM_BYTES_S
+                row["spins"] = take_spins()
                 rows.append(row)
                 log(f"K3 {row}")
     # Phase 9's fit: every site of the step at B = FIT_B in bf16 (K3's TMA
@@ -373,6 +411,7 @@ def phase_k5(torch) -> dict:
                     torch.cuda.synchronize()
                 row["plain_bwd_device_ops"] = sum(
                     1 for e in prof.events() if e.device_type.name == "CUDA")
+        row["spins"] = take_spins()
         rows.append(row)
         log(f"K5 {row}")
     per_bwd = {k[4:]: v for k, v in tot.items() if k.startswith("bwd_")}
@@ -444,6 +483,7 @@ def phase_stem_pool(torch) -> dict:
                     torch.cuda.synchronize()
                 row["plain_device_ops"] = sum(
                     1 for e in prof.events() if e.device_type.name == "CUDA")
+        row["spins"] = take_spins()
         rows.append(row)
         log(f"stem pool backward {row}")
     per_step = dict(tot, library_ms=None)  # no PyTorch call routes a tie to every maximum
@@ -882,6 +922,7 @@ def phase_reproj(torch) -> dict:
             for k in ("ms", "plain_ms", "library_ms", "bound_ms"):
                 tot["k2_" + k] = row["bwd_" + k]
             tot["bound_by_fwd"], tot["bound_by_bwd"] = row["bound_by"], by
+        row["spins"] = take_spins()
         rows.append(row)
         log(f"K1/K2 {row}")
         del preds, ident, targ, cot, out, ref, ref_ident, ident_l, code
@@ -944,15 +985,17 @@ def phase_conv_bwd(torch, sites) -> dict:
         if not (ew <= row["wgrad_tol"] and tuple(dw.shape) == (o, c, 3, 3)):
             raise AssertionError(f"K4 disagrees with its plain version: {row}")
         err_d, err_w = max(err_d, ed), max(err_w, ew)
-        if bsz != 1:
+        if dtype == torch.bfloat16:
             # K4's and the plain version's distances to float64 (cuDNN in
-            # fp64 on the same bf16 inputs): which of the two moves with B.
+            # fp64 on the same bf16 inputs), at B = 1 and at the larger
+            # batches: which of the two moves with B.
             dw64 = grad.conv2d_weight(x.double(), wt.shape, gy.double(), padding=pad)
             row.update(wgrad_err_f64=(dw.double() - dw64).abs().max().item(),
                        wgrad_plain_err_f64=(dw_ref.double() - dw64).abs().max().item())
             row["wgrad_f64_over_plain"] = row["wgrad_err_f64"] / row["wgrad_plain_err_f64"]
             row["wgrad_gate_share"] = ew / row["wgrad_tol"]
             del dw64
+        if bsz != 1:
             rows.append(row)
             log(f"K3-dgrad/K4 {row}")
             # K4 sums a split's tiles in its wgmma accumulator only a few at
@@ -1005,6 +1048,7 @@ def phase_conv_bwd(torch, sites) -> dict:
                 tot["wgrad_" + k] += count * row["wgrad_" + k]
             ops_t += count * n_ops / PEAK_BF16
             bytes_t += count * (c * hin * win + o * h * w) * item / HBM_BYTES_S
+        row["spins"] = take_spins()
         rows.append(row)
         log(f"K3-dgrad/K4 {row}")
     return {"rows": rows, "dgrad_max_abs_err": err_d, "wgrad_max_abs_err": err_w,

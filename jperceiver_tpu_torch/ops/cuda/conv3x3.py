@@ -48,14 +48,19 @@ _F32_WG_BK = 32    # fp32 K4's pixel chunk granule
 # box_w x box_h pixels of one image. TMA needs strides in multiples of 16
 # bytes (8 channels) and fills channels past the real count with zeros.
 _CHUNK = 64
-_K3_PIXELS, _K4_PIXELS = 128, 64
+_K3_PIXELS, _K4_PIXELS = 128, 128
 # The most `wgmma` (16 pixels each) K4's accumulator sums before the kernel
 # adds it into its second fp32 sum, in registers: wgmma's own adds lose
-# precision with the length of that chain (`k4_plan`).
+# precision with the length of that chain (`k4_plan`). At 128 pixels a step
+# that is every 2 steps. The adds cost next to nothing: with no second sum
+# at all a step is no faster (within 4%, `chip_conv_sweep.py --k4-anatomy`
+# on the H100), since what sets it is the step's loads.
 K4_CHAIN = 16
 # What a wave of K4 blocks costs beyond its tiles (pipeline fill, the
-# partial's store), in tiles of a block (`k4_plan`).
-_K4_WAVE_TILES = 4
+# partial's store), in tiles of a block, and the bytes of fp32 partials that
+# `sum_splits` reads in about a tile's time (`k4_plan`).
+_K4_WAVE_TILES = 6
+_K4_SUM_BYTES = 2.5e6
 _K3_WIDTHS, _K4_WIDTHS = (256, 176, 128, 64), (128, 64)
 _BOX_WIDTHS = (128, 64, 32, 16, 8)
 
@@ -82,10 +87,13 @@ class TilePlan:
     of one image, numbered x fastest, then y, then image. Input channels are
     read 64 at a time (`kchunks` chunks), zero past `c`. K3 gives a block
     one tile and `bn` output channels and loops over (tap, chunk); K4 gives
-    a block two (tap, chunk) items, `bn` output channels and a split of
-    `tiles_per_split` consecutive tiles, and loops over the tiles, adding
-    its `wgmma` accumulator into a second fp32 sum every `flush_tiles`
-    tiles; at the end it writes that sum as the split's partial. An
+    a block two (tap, chunk) items (`k4_items`), `bn` output channels and
+    a split of `tiles_per_split` consecutive tiles, and loops over the
+    tiles, adding its `wgmma` accumulator into a second fp32 sum every
+    `flush_tiles` tiles; at the end it writes that sum as the split's
+    partial. Where a block's two items are one tap's adjacent whole chunks
+    its x boxes come in one load, and so do its g boxes where its 128
+    output channels are whole chunks. An
     operand that has to be copied is stored `c_store` (`o_store`) channels
     wide; K3's output is stored `o_store` wide.
     """
@@ -139,6 +147,25 @@ class TilePlan:
     def n_tiles(self) -> int:
         return _ceil(self.o, self.bn)
 
+    @property
+    def xpairs(self) -> int:
+        """K4: the pairs of whole 64-channel chunks of x a tap."""
+        return (self.c // _CHUNK) // 2
+
+    def k4_items(self, j: int) -> tuple[bool, list[tuple[int, int]]]:
+        """K4 block j's (tap, chunk) items along the grid's x, and whether
+        its two x boxes come in one load, as the kernel's `block_items`
+        gives them: the first 9 * xpairs blocks take each tap's chunk pairs
+        (2k, 2k + 1), the rest the chunks past those two at a time,
+        tap-major; ceil(9 kchunks / 2) blocks in all."""
+        if j < 9 * self.xpairs:
+            tap, k = divmod(j, self.xpairs)
+            return True, [(tap, 2 * k), (tap, 2 * k + 1)]
+        left = self.kchunks - 2 * self.xpairs
+        q = 2 * (j - 9 * self.xpairs)
+        return False, [(qq // left, 2 * self.xpairs + qq % left)
+                       for qq in range(q, min(q + 2, 9 * left))]
+
     def tile_origin(self, t: int) -> tuple[int, int, int]:
         """(image, oy0, ox0) of output tile t."""
         tx, ty = t % self.tiles_x, (t // self.tiles_x) % self.tiles_y
@@ -186,27 +213,41 @@ def k3_plan(b: int, h: int, w: int, c: int, o: int, pad: int, sms: int = 132) ->
 @functools.lru_cache(maxsize=512)
 def k4_plan(b: int, h: int, w: int, c: int, o: int, pad: int, sms: int = 132) -> TilePlan:
     """The tile plan of a bf16 K4 launch on x (b, c, h, w) and a cotangent
-    of o channels: tiles of 64 pixels, the output-tile width (64 or 128:
+    of o channels: tiles of 128 pixels, the output-tile width (64 or 128:
     the kernel's second sum sits in registers beside its accumulator) that
     covers o with the fewest columns, the widest of equals, and the pixels
-    cut into the splits that make the kernel's critical path least: waves
-    of blocks on the `sms` SMs times (the tiles a block sums plus
-    _K4_WAVE_TILES), of equals the fewest splits (each writes 9 x 64
-    kchunks x o fp32 partials that `sum_splits` reads again), with at
-    least 16 tiles a split.
+    cut into the splits that make the launch's time least: waves of blocks
+    on the `sms` SMs times (the tiles a block sums plus _K4_WAVE_TILES),
+    plus the splits' fp32 partials (9 x 64 kchunks x o each) that
+    `sum_splits` reads, _K4_SUM_BYTES a tile; of equals the fewest splits,
+    with at least 8 tiles a split. (Fitted to `chip_conv_sweep.py` on the
+    H100 at the step's sites, B = 1: a 128-pixel tile takes a block about
+    1 us at 128 wide, 0.7 at 64.)
+
+    What bounds the kernel on the H100 is its loads, per load and per step
+    more than per byte (`chip_conv_sweep.py --k4-anatomy`): so the tiles
+    are 128 pixels (64 took 1.4-1.6x as long a pixel), and a block's two x
+    boxes come in one load where its items are one tap's adjacent whole
+    chunks (`TilePlan.k4_items`), as do its two g boxes at 128 wide. At
+    the small sites the launch's fill and `sum_splits` weigh as much as
+    the steps, which the wave and partial terms above price.
 
     Within a split the kernel sums K4_CHAIN `wgmma` in its accumulator
     before it adds them into the second fp32 sum: summed in the accumulator
-    alone, 1,024 tiles came out 71x the plain version's distance to float64
-    at 513 -> 256 @ 256^2 and B = 3 on the H100 (`chip_conv_sweep.py
+    alone, 4,096 `wgmma` came out 71x the plain version's distance to
+    float64 at 513 -> 256 @ 256^2 and B = 3 on the H100 (`chip_conv_sweep.py
     --k4-flush`)."""
     ho, wo = h + 2 * pad - 2, w + 2 * pad - 2
+    if min(b, c, o, ho, wo) < 1:
+        raise ValueError(f"k4_plan: no work in x ({b}, {c}, {h}, {w}) -> {o} at pad {pad}")
     box_w, box_h = _pick_box(ho, wo, _K4_PIXELS)
     tiles = b * _ceil(wo, box_w) * _ceil(ho, box_h)
     bn = min(_K4_WIDTHS, key=lambda n: (_ceil(o, n) * n, -n))
     blocks = _ceil(9 * _ceil(c, _CHUNK), 2) * _ceil(o, bn)
-    splits = min(range(1, max(1, tiles // 16) + 1),
-                 key=lambda s: (_ceil(blocks * s, sms) * (_ceil(tiles, s) + _K4_WAVE_TILES), s))
+    partial = 9 * _CHUNK * _ceil(c, _CHUNK) * bn * _ceil(o, bn) * 4
+    splits = min(range(1, max(1, tiles // 8) + 1),
+                 key=lambda s: (_ceil(blocks * s, sms) * (_ceil(tiles, s) + _K4_WAVE_TILES)
+                                + s * partial / _K4_SUM_BYTES, s))
     per_split = _ceil(tiles, splits)
     return TilePlan(b, h, w, c, o, pad, box_w, box_h, bn, _ceil(tiles, per_split), per_split,
                     min(K4_CHAIN * 16 // _K4_PIXELS, per_split))

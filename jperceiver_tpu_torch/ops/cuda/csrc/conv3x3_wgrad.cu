@@ -22,26 +22,40 @@
 // blocks run in parallel and in no order -- nothing carries over between them as the TPU
 // grid's VMEM accumulator did -- so the pixels are split: each split writes fp32 partials,
 // and `sum_splits` adds them in a fixed order into (O, C, 3, 3).
-//   * bf16: a block owns two (tap, 64-channel) items -- one per consumer warpgroup -- and
-//     BN output channels (64 or 128), over one split's pixel tiles. A K step is a tile of
-//     64 output pixels (a box of box_w x box_h of one image): ONE TMA load of the
-//     cotangent, (64 o, box_w, box_h, 1) boxes that both warpgroups share, and per item
-//     one box of x at (c0, ox0 + kx - pad, oy0 + ky - pad, b), zero-filled outside the
-//     image as the padding is. Both operands are MN-major in shared memory (channels
-//     contiguous, pixels along the rows, 128-byte swizzled); wgmma m64nBNk16 reads them
-//     through its transpose bits. So a 128 x 128 (c, o) tile reads g once for two taps,
-//     where a block per tap read it nine times. A producer warp keeps a ring of 6 stages
-//     in flight behind full/empty mbarriers. `k4_plan` splits the pixels so that the
-//     waves of blocks times the tiles a block sums is least. Every few tiles the
-//     accumulator is added into a second fp32 sum in registers (below): wgmma's own adds
-//     lose precision along a chain.
+//   * bf16: a block owns two (tap, 64-channel chunk) items -- one per consumer warpgroup --
+//     and BN output channels (64 or 128), over one split's pixel tiles. A K step is a tile of
+//     128 output pixels (a box of box_w x box_h of one image): per item a box of x at
+//     (c0, ox0 + kx - pad, oy0 + ky - pad, b), zero-filled outside the image as the padding
+//     is, and the cotangent's (64 o, box_w, box_h, 1) boxes that both warpgroups share.
+//     Where the two items are one tap's adjacent whole chunks their two x boxes come in ONE
+//     load, from a 5-D map (64 channels, W, H, chunk, B) whose chunks lie 128 bytes apart
+//     (`encode_nhwc_pair_map`), and so do the two g boxes of a 128-wide tile: two loads a
+//     step in place of four (`block_items` orders the items so that most blocks pair).
+//     Both operands are MN-major in shared memory (channels contiguous, pixels along the
+//     rows, 128-byte swizzled); wgmma m64nBNk16 reads them through its transpose bits, 8 a
+//     step. A producer warp keeps a ring of 3 stages (4 at BN = 64) in flight behind
+//     full/empty mbarriers. `k4_plan` splits the pixels so that the waves of blocks times the
+//     tiles a block sums, plus the partials `sum_splits` reads, is least. Every 2 steps
+//     (16 wgmma) the accumulator is added into a second fp32 sum in registers (below):
+//     wgmma's own adds lose precision along a chain.
 //   * fp32: a 64x64 tile of one tap on the CUDA cores, 4x4 outputs a thread, fed by
 //     cp.async (the tensor cores would round fp32 to TF32, which the contract does not
 //     allow), with blocked fp32 sums.
-// What holds it below its bound: the L2 rate at the large sites (32 KB a K step for 2.1
-// MFLOP), and at the small ones the fp32 partials, `splits` x 9C x O x 4 bytes written and
-// summed again, against a few microseconds of products. Times and shares of the bound are in
-// PERF.md (`chip_smoke.py` phase 7, `chip_conv_sweep.py --k4-flush`).
+// What sets a bf16 step's time (`chip_conv_sweep.py --k4-anatomy`, variants of this file at
+// 256 -> 256 and 513 -> 256 @ 256^2, B = 3, on the H100; PERF.md section 6): the loads, per
+// load and per step more than per byte. In the 64-pixel design before this one a step took
+// 0.76-0.78 us, of which loads and barriers alone took 0.58-0.60 and products on resident
+// stages alone 0.40; 128 pixels a step (twice the bytes a load) took 0.53 us per 64 pixels.
+// Two cluster designs were measured and dropped (PERF.md section 6): an o pair of blocks
+// sharing x by TMA multicast (a quarter fewer bytes from L2) gained nothing once its
+// handshake was cheap (and lost 45% with cluster-scope release/acquire), and the splits
+// summed in one cluster through distributed shared memory lost to `sum_splits` (a cluster
+// of 8-11 blocks leaves SMs idle). This design: 0.90-1.08 us per 128 pixels, loads alone
+// 0.72-0.90, products alone 0.77-0.82; the two overlap only in part
+// (both use the SM's shared memory: 64 KB written and 96 KB of wgmma operands read a step,
+// which is not measured apart). At the small sites the launch's fill and `sum_splits`
+// (splits x 9C x O x 4 bytes written and read again) weigh as much as the steps. Times and
+// shares of the bound are in PERF.md (`chip_smoke.py` phase 7).
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -60,43 +74,79 @@ namespace bf16k {
 
 constexpr int THREADS = 384;  // warpgroups 0-1 consume (wgmma), warpgroup 2 produces (TMA)
 
-constexpr int BP = 64;        // pixels a K step
-constexpr int BOX_BYTES = BP * 64 * 2;  // one (64 channels, 64 pixels) box: 8 KB
+constexpr int BP = 128;       // pixels a K step (a box of box_w x box_h pixels of one image)
+constexpr int BOX_BYTES = BP * 64 * 2;  // one (64 channels, 128 pixels) box: 16 KB
 
 // wgmma's fp32 accumulator loses precision in its own adds, by an amount that grows with the
 // number of wgmma it sums (`chip_conv_sweep.py --k4-flush`: 71x the plain version's distance
-// to float64 after 1,024 tiles, where fp32 adds rounded to nearest over the same chain stay
-// at 0.8x). So every `flush_tiles` tiles each consumer thread adds the accumulator into a
-// second fp32 sum in registers beside it and zeroes it. Both fit up to 128 output channels
-// (64 registers each at BN = 128), which is why BN stops there.
+// to float64 after 4,096 wgmma, where fp32 adds rounded to nearest over the same chain stay
+// at 0.8x). So every `flush_tiles` steps (16 wgmma) each consumer thread adds the
+// accumulator into a second fp32 sum in registers beside it and zeroes it. Both fit up to
+// 128 output channels (64 registers each at BN = 128), which is why BN stops there. A stage
+// at BN = 128 is 64 KB (two x and two g boxes of 128 pixels), so 3 fit in shared memory.
+// The cap costs less than it did at 64 pixels a step: the step is set by its loads
+// (header), and a 128-wide step takes 0.90-1.08 us against 0.77-0.82 for its products alone.
 template <int BN>
 struct Cfg {
   static_assert(BN == 64 || BN == 128, "the second sum sits in registers up to 128 wide");
   static constexpr int G_BOXES = BN / 64;
   static constexpr int STAGE_BYTES = (2 + G_BOXES) * BOX_BYTES;  // x for two items, then g
-  static constexpr int STAGES = 196608 / STAGE_BYTES > 6 ? 6 : 196608 / STAGE_BYTES;
+  static constexpr int STAGES = 196608 / STAGE_BYTES;  // 3 at BN = 128, 4 at 64
   static constexpr int SMEM = 1024 + STAGES * STAGE_BYTES + 2 * STAGES * 8;
 };
 
 // This thread's elements of a 64 x BN accumulator tile: pairs of columns at rows r and r + 8
-// (`out` points at row r, column 0 of the tile).
+// (`out` points at row r, column 0 of the tile; rows `stride` floats apart).
 template <int BN>
-__device__ __forceinline__ void to_partial(const float (&acc)[BN / 2], float* out, int o_cols) {
+__device__ __forceinline__ void store_tile(const float (&acc)[BN / 2], float* out, int stride) {
   const int lane = threadIdx.x % 32;
 #pragma unroll
   for (int j = 0; j < BN / 8; ++j) {
     float* lo = out + 8 * j + 2 * (lane % 4);
     *reinterpret_cast<float2*>(lo) = make_float2(acc[4 * j], acc[4 * j + 1]);
-    *reinterpret_cast<float2*>(lo + (size_t)8 * o_cols) = make_float2(acc[4 * j + 2],
+    *reinterpret_cast<float2*>(lo + (size_t)8 * stride) = make_float2(acc[4 * j + 2],
                                                                        acc[4 * j + 3]);
   }
+}
+
+// The (tap, 64-channel chunk) items of block j along the grid's x, and whether its two x
+// boxes come in one load (one tap's two adjacent whole chunks, from the pair map). The first
+// 9 * xpairs blocks take each tap's chunk pairs (2k, 2k + 1) over the C / 64 whole chunks;
+// the rest take the chunks past them, `left` a tap, two items a block, tap-major.
+struct Items {
+  int n;
+  bool paired;
+  int tap[2], chunk[2];
+};
+
+__device__ __forceinline__ Items block_items(int j, int kchunks, int xpairs) {
+  Items it;
+  if (j < 9 * xpairs) {
+    it.n = 2;
+    it.paired = true;
+    it.tap[0] = it.tap[1] = j / xpairs;
+    it.chunk[0] = 2 * (j % xpairs);
+    it.chunk[1] = it.chunk[0] + 1;
+  } else {
+    const int left = kchunks - 2 * xpairs, q = 2 * (j - 9 * xpairs);
+    it.n = min(2, 9 * left - q);
+    it.paired = false;
+    for (int w = 0; w < 2; ++w) {
+      const int qq = min(q + w, 9 * left - 1);
+      it.tap[w] = qq / left;
+      it.chunk[w] = 2 * xpairs + qq % left;
+    }
+  }
+  return it;
 }
 
 template <int BN>
 __global__ void __launch_bounds__(THREADS, 1)
 wgrad_bf16_wgmma(const __grid_constant__ CUtensorMap xmap, const __grid_constant__ CUtensorMap gmap,
-                 float* __restrict__ partial, int c_rows, int o_cols, int pad, int box_w,
-                 int box_h, int tiles_x, int tiles_y, int tiles, int tiles_per_split, int kchunks,
+                 const __grid_constant__ CUtensorMap xpair,
+                 const __grid_constant__ CUtensorMap gpair, float* __restrict__ partial,
+                 int c_rows, int o_cols, int O, int pad, int box_w, int box_h, int tiles_x,
+                 int tiles_y, int tiles, int tiles_per_split, int kchunks, int xpairs,
                  int flush_tiles) {
   using Cf = Cfg<BN>;
   extern __shared__ unsigned char smem_raw[];
@@ -104,9 +154,11 @@ wgrad_bf16_wgmma(const __grid_constant__ CUtensorMap xmap, const __grid_constant
   uint64_t* full = reinterpret_cast<uint64_t*>(smem + Cf::STAGES * Cf::STAGE_BYTES);
   uint64_t* empty = full + Cf::STAGES;
 
-  const int item0 = 2 * blockIdx.x;  // item = tap * kchunks + channel chunk
-  const int n_items = min(2, 9 * kchunks - item0);
+  const Items it = block_items(blockIdx.x, kchunks, xpairs);
+  const int n_items = it.n;
   const int n0 = blockIdx.y * BN;
+  // Both g boxes in one load where the output tile is two whole 64-channel chunks.
+  const bool g_paired = BN == 128 && n0 + 128 <= O;
   const int split = blockIdx.z;
   const int t_begin = split * tiles_per_split;
   const int ksteps = max(0, min(tiles, t_begin + tiles_per_split) - t_begin);
@@ -132,68 +184,76 @@ wgrad_bf16_wgmma(const __grid_constant__ CUtensorMap xmap, const __grid_constant
         const int ox0 = tx * box_w, oy0 = ty * box_h;
         unsigned char* st = smem + s * Cf::STAGE_BYTES;
         jp::mbar_expect_tx(&full[s], (n_items + Cf::G_BOXES) * BOX_BYTES);
-        for (int w = 0; w < n_items; ++w) {
-          const int item = item0 + w;
-          const int tap = item / kchunks, c0 = (item - tap * kchunks) * 64;
-          const int ky = tap / 3, kx = tap - 3 * ky;
-          jp::tma_load_4d(st + w * BOX_BYTES, &xmap, &full[s], c0, ox0 + kx - pad,
-                          oy0 + ky - pad, b);
-        }
-        for (int j = 0; j < Cf::G_BOXES; ++j)
-          jp::tma_load_4d(st + (2 + j) * BOX_BYTES, &gmap, &full[s], n0 + 64 * j, ox0,
-                          oy0, b);
-      }
-    }
-  } else {
-    jp::setmaxnreg_inc<232>();
-    if (wg < n_items) {
-      const int warp = (threadIdx.x % 128) / 32, lane = threadIdx.x % 32;
-      float acc[BN / 2], rsum[BN / 2];
-#pragma unroll
-      for (int i = 0; i < BN / 2; ++i) acc[i] = rsum[i] = 0.0f;
-      jp::fence_accumulator(acc);
-      // Rows are the item's 64 channels, columns BN output channels.
-      const int item = item0 + wg;
-      const int tap = item / kchunks, c0 = (item - tap * kchunks) * 64;
-      const int r = warp * 16 + lane / 4;
-      float* out = partial + ((size_t)(split * 9 + tap) * c_rows + c0 + r) * o_cols + n0;
-      const uint32_t x_base = jp::smem_u32(smem) + wg * BOX_BYTES;
-      const uint32_t g_base = jp::smem_u32(smem) + 2 * BOX_BYTES;
-      for (int i = 0; i < ksteps; ++i) {
-        const int s = i % Cf::STAGES;
-        jp::mbar_wait(&full[s], (i / Cf::STAGES) & 1);
-        const uint32_t xa = x_base + s * Cf::STAGE_BYTES, ga = g_base + s * Cf::STAGE_BYTES;
-        jp::wgmma_fence();
-#pragma unroll
-        for (int kk = 0; kk < BP / 16; ++kk)  // 16 pixels (rows of 128 bytes) a wgmma
-          jp::wgmma_m64k16<BN, 1, 1>(acc, jp::sw128_desc(xa + 2048 * kk, BOX_BYTES, 1024),
-                                     jp::sw128_desc(ga + 2048 * kk, BOX_BYTES, 1024));
-        jp::wgmma_commit();
-        jp::wgmma_wait<1>();
-        if (i > 0 && lane == 0) jp::mbar_arrive(&empty[(i - 1) % Cf::STAGES]);
-        if ((i + 1) % flush_tiles == 0 && i + 1 < ksteps) {
-          jp::wgmma_wait<0>();
-          jp::fence_accumulator(acc);
-#pragma unroll
-          for (int j = 0; j < BN / 2; ++j) {
-            rsum[j] += acc[j];
-            acc[j] = 0.0f;
+        if (it.paired) {
+          const int ky = it.tap[0] / 3, kx = it.tap[0] - 3 * ky;
+          jp::tma_load_5d(st, &xpair, &full[s], 0, ox0 + kx - pad, oy0 + ky - pad, it.chunk[0],
+                          b);
+        } else {
+          for (int w = 0; w < n_items; ++w) {
+            const int ky = it.tap[w] / 3, kx = it.tap[w] - 3 * ky, c0 = 64 * it.chunk[w];
+            jp::tma_load_4d(st + w * BOX_BYTES, &xmap, &full[s], c0, ox0 + kx - pad,
+                            oy0 + ky - pad, b);
           }
-          jp::fence_accumulator(acc);
+        }
+        if (g_paired) {
+          jp::tma_load_5d(st + 2 * BOX_BYTES, &gpair, &full[s], 0, ox0, oy0, n0 / 64, b);
+        } else {
+          for (int j = 0; j < Cf::G_BOXES; ++j)
+            jp::tma_load_4d(st + (2 + j) * BOX_BYTES, &gmap, &full[s], n0 + 64 * j, ox0,
+                            oy0, b);
         }
       }
-      jp::wgmma_wait<0>();
-      jp::fence_accumulator(acc);
-#pragma unroll
-      for (int j = 0; j < BN / 2; ++j) acc[j] = rsum[j] + acc[j];
-      to_partial<BN>(acc, out, o_cols);
     }
+    return;
+  }
+  jp::setmaxnreg_inc<232>();
+  if (wg < n_items) {
+    const int warp = (threadIdx.x % 128) / 32, lane = threadIdx.x % 32;
+    float acc[BN / 2], rsum[BN / 2];
+#pragma unroll
+    for (int i = 0; i < BN / 2; ++i) acc[i] = rsum[i] = 0.0f;
+    jp::fence_accumulator(acc);
+    const uint32_t x_base = jp::smem_u32(smem) + wg * BOX_BYTES;
+    const uint32_t g_base = jp::smem_u32(smem) + 2 * BOX_BYTES;
+    for (int i = 0; i < ksteps; ++i) {
+      const int s = i % Cf::STAGES;
+      jp::mbar_wait(&full[s], (i / Cf::STAGES) & 1);
+      const uint32_t xa = x_base + s * Cf::STAGE_BYTES, ga = g_base + s * Cf::STAGE_BYTES;
+      jp::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < BP / 16; ++kk)  // 16 pixels (rows of 128 bytes) a wgmma
+        jp::wgmma_m64k16<BN, 1, 1>(acc, jp::sw128_desc(xa + 2048 * kk, BOX_BYTES, 1024),
+                                   jp::sw128_desc(ga + 2048 * kk, BOX_BYTES, 1024));
+      jp::wgmma_commit();
+      jp::wgmma_wait<1>();
+      if (i > 0 && lane == 0) jp::mbar_arrive(&empty[(i - 1) % Cf::STAGES]);
+      if ((i + 1) % flush_tiles == 0 && i + 1 < ksteps) {
+        jp::wgmma_wait<0>();
+        jp::fence_accumulator(acc);
+#pragma unroll
+        for (int j = 0; j < BN / 2; ++j) {
+          rsum[j] += acc[j];
+          acc[j] = 0.0f;
+        }
+        jp::fence_accumulator(acc);
+      }
+    }
+    jp::wgmma_wait<0>();
+    jp::fence_accumulator(acc);
+#pragma unroll
+    for (int j = 0; j < BN / 2; ++j) acc[j] = rsum[j] + acc[j];
+    // Rows are the item's 64 channels, columns BN output channels.
+    const int r = warp * 16 + lane / 4;
+    store_tile<BN>(acc, partial + ((size_t)(split * 9 + it.tap[wg]) * c_rows +
+                                   64 * it.chunk[wg] + r) * o_cols + n0,
+                   o_cols);
   }
 }
 
 template <int BN>
-cudaError_t launch(const CUtensorMap& xmap, const CUtensorMap& gmap, float* partial, int B,
-                   int Ho, int Wo, int O, int pad, int box_w, int box_h, int kchunks, int splits,
+cudaError_t launch(const CUtensorMap& xmap, const CUtensorMap& gmap, const CUtensorMap& xpair,
+                   const CUtensorMap& gpair, float* partial, int B, int Ho, int Wo, int O,
+                   int pad, int box_w, int box_h, int kchunks, int xpairs, int splits,
                    int tiles_per_split, int flush_tiles, cudaStream_t stream) {
   // Above 48 KB of dynamic shared memory a kernel must ask, once.
   static const cudaError_t attr = cudaFuncSetAttribute(
@@ -204,10 +264,11 @@ cudaError_t launch(const CUtensorMap& xmap, const CUtensorMap& gmap, float* part
   if ((long long)splits * tiles_per_split < tiles || (long long)(splits - 1) * tiles_per_split >= tiles)
     return cudaErrorInvalidValue;
   const int o_tiles = (O + BN - 1) / BN;
-  const dim3 grid((9 * kchunks + 1) / 2, o_tiles, splits);
+  const int left = kchunks - 2 * xpairs;
+  const dim3 grid(9 * xpairs + (9 * left + 1) / 2, o_tiles, splits);
   wgrad_bf16_wgmma<BN><<<grid, THREADS, Cfg<BN>::SMEM, stream>>>(
-      xmap, gmap, partial, 64 * kchunks, o_tiles * BN, pad, box_w, box_h, tiles_x, tiles_y,
-      tiles, tiles_per_split, kchunks, flush_tiles);
+      xmap, gmap, xpair, gpair, partial, 64 * kchunks, o_tiles * BN, O, pad, box_w, box_h,
+      tiles_x, tiles_y, tiles, tiles_per_split, kchunks, xpairs, flush_tiles);
   return cudaGetLastError();
 }
 
@@ -375,9 +436,9 @@ cudaError_t reduce(const float* partial, float* out, int C, int O, int c_rows, i
 // bf16: x (B, H, W, C) and g (B, Ho, Wo, O) channels-last with pixel, row and image strides
 // sx_* and sg_* (elements, multiples of 8); channels past C and O are never read.
 // partial: `splits` x (9, 64*ceil(C/64), bn*ceil(O/bn)) fp32 scratch; out: (O, C, 3, 3)
-// fp32. Pixel tiles of box_w x box_h = 64, bn output channels (64 or 128),
-// tiles_per_split tiles a split: the wrapper's tile plan (`ops/cuda/conv3x3.py::k4_plan`).
-// Returns the cudaError_t of the launches.
+// fp32. Pixel tiles of box_w x box_h = 128, bn output channels (64 or 128),
+// tiles_per_split tiles a split, the second sum every flush_tiles tiles: the wrapper's tile
+// plan (`ops/cuda/conv3x3.py::k4_plan`). Returns the cudaError_t of the launches.
 extern "C" int jp_conv3x3_wgrad_bf16(const void* x, const void* g, float* partial, float* out,
                                      int B, int H, int W, int C, long long sx_w, long long sx_h,
                                      long long sx_b, int O, long long sg_w, long long sg_h,
@@ -390,16 +451,26 @@ extern "C" int jp_conv3x3_wgrad_bf16(const void* x, const void* g, float* partia
       box_h > 256 || splits < 1 || tiles_per_split < 1 || flush_tiles < 1 ||
       (reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(g)) % 16 != 0)
     return static_cast<int>(cudaErrorInvalidValue);
+  // x and g as 4-D maps, read a box an item or 64 output channels, and as pair maps
+  // (`encode_nhwc_pair_map`), read two whole chunks a box where there are any (else the 4-D
+  // map stands in, unread). xpairs: the pairs of whole 64-channel chunks of x a tap.
+  const int xpairs = (C / 64) / 2;
   CUtensorMap xmap, gmap;
   if (!jp::encode_nhwc_map(&xmap, x, B, H, W, C, sx_w, sx_h, sx_b, box_w, box_h) ||
       !jp::encode_nhwc_map(&gmap, g, B, Ho, Wo, O, sg_w, sg_h, sg_b, box_w, box_h))
+    return static_cast<int>(cudaErrorInvalidValue);
+  CUtensorMap xpair = xmap, gpair = gmap;
+  if ((xpairs > 0 &&
+       !jp::encode_nhwc_pair_map(&xpair, x, B, H, W, C, sx_w, sx_h, sx_b, box_w, box_h)) ||
+      (bn == 128 && O >= 128 &&
+       !jp::encode_nhwc_pair_map(&gpair, g, B, Ho, Wo, O, sg_w, sg_h, sg_b, box_w, box_h)))
     return static_cast<int>(cudaErrorInvalidValue);
   const int kchunks = (C + 63) / 64;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   switch (bn) {
-    case 64: err = bf16k::launch<64>(xmap, gmap, partial, B, Ho, Wo, O, pad, box_w, box_h, kchunks, splits, tiles_per_split, flush_tiles, s); break;
-    case 128: err = bf16k::launch<128>(xmap, gmap, partial, B, Ho, Wo, O, pad, box_w, box_h, kchunks, splits, tiles_per_split, flush_tiles, s); break;
+    case 64: err = bf16k::launch<64>(xmap, gmap, xpair, gpair, partial, B, Ho, Wo, O, pad, box_w, box_h, kchunks, xpairs, splits, tiles_per_split, flush_tiles, s); break;
+    case 128: err = bf16k::launch<128>(xmap, gmap, xpair, gpair, partial, B, Ho, Wo, O, pad, box_w, box_h, kchunks, xpairs, splits, tiles_per_split, flush_tiles, s); break;
     default: err = cudaErrorInvalidValue;
   }
   if (err != cudaSuccess) return static_cast<int>(err);

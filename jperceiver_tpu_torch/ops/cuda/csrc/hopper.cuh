@@ -94,6 +94,16 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map, u
       : "memory");
 }
 
+__device__ __forceinline__ void tma_load_5d(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                            int c0, int c1, int c2, int c3, int c4) {
+  asm volatile(
+      "cp.async.bulk.tensor.5d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4, %5, %6, %7}], [%2];" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2),
+      "r"(c3), "r"(c4)
+      : "memory");
+}
+
 // Synchronise the threads of the two consumer warpgroups (barrier 0 is __syncthreads).
 __device__ __forceinline__ void consumers_sync() {
   asm volatile("bar.sync 1, 256;" ::: "memory");
@@ -307,6 +317,20 @@ inline bool encode_nhwc_map(CUtensorMap* map, const void* base, int B, int H, in
   const uint64_t strides[3] = {2ull * sw, 2ull * sh, 2ull * sb};
   const uint32_t box[4] = {64u, (uint32_t)box_w, (uint32_t)box_h, 1u};
   return encode_bf16_map(map, base, 4, dims, strides, box);
+}
+
+// The same activation as a 5-D map (64 channels, W, H, C / 64 chunks, B), the chunks 128
+// bytes apart, read in boxes of (64, box_w, box_h, 2, 1): one load brings two adjacent
+// 64-channel chunks of the same pixels, the first chunk's box_w x box_h rows and then the
+// second's, as two 4-D boxes would. Only whole chunks are in the map (channels past the last
+// whole chunk are not zero-filled by it).
+inline bool encode_nhwc_pair_map(CUtensorMap* map, const void* base, int B, int H, int W, int C,
+                                 long long sw, long long sh, long long sb, int box_w,
+                                 int box_h) {
+  const uint64_t dims[5] = {64u, (uint64_t)W, (uint64_t)H, (uint64_t)(C / 64), (uint64_t)B};
+  const uint64_t strides[4] = {2ull * sw, 2ull * sh, 128ull, 2ull * sb};
+  const uint32_t box[5] = {64u, (uint32_t)box_w, (uint32_t)box_h, 2u, 1u};
+  return encode_bf16_map(map, base, 5, dims, strides, box);
 }
 
 // Whether the strides suit a tensor map: positive multiples of 8 elements (16 bytes).

@@ -36,8 +36,10 @@ def _avg_pool3(x: torch.Tensor) -> torch.Tensor:
 
 
 def clip01(z: torch.Tensor) -> torch.Tensor:
-    """`jnp.clip(z, 0, 1)`: maximum then minimum, ties splitting the gradient."""
-    return torch.minimum(torch.maximum(z, z.new_tensor(0.0)), z.new_tensor(1.0))
+    """`jnp.clip(z, 0, 1)`: maximum then minimum, ties splitting the gradient.
+    The bounds are filled on z's device (`new_tensor` would copy them from
+    the host and wait for the device's queue)."""
+    return torch.minimum(torch.maximum(z, z.new_zeros(())), z.new_ones(()))
 
 
 def ssim(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:

@@ -2,8 +2,9 @@
 
 On the card the bf16 kernels read every operand as TMA boxes: for K3, per
 output tile and (tap, 64-channel chunk), one box of the activation and one
-of the weight; for K4, per pixel tile of a split, one box of the activation
-for each (tap, chunk) item and the cotangent's boxes. `k3_plan` and
+of the weight; for K4, per 128-pixel tile of a split, one box of the
+activation for each of a block's (tap, chunk) items (two adjacent whole
+chunks of one tap in one load) and the cotangent's boxes. `k3_plan` and
 `k4_plan` say which boxes, and the kernels compute the same coordinates
 from their block index. Here each box is cut out of the tensor with plain
 slicing, zero-filled outside it as TMA fills it, multiplied and summed in
@@ -14,8 +15,11 @@ here before any card runs it.
 Shapes: the nine K3 site shapes of the 1024^2 step (channels as they are,
 extents / 8), each as the forward and as the data-grad (pad 2 - pad, the
 channels swapped), and small shapes whose extents leave tail tiles, at pads
-0, 1 and 2, with B = 2.
+0, 1 and 2, with B = 2. The K4 replay is also held to the JAX package's
+`_wgrad` on the same numpy inputs.
 """
+
+import functools
 
 import numpy as np
 import pytest
@@ -25,6 +29,17 @@ from jperceiver_tpu_torch.ops.cuda.conv3x3 import (K4_CHAIN, conv3x3_plain,
                                                    conv3x3_wgrad_plain, k3_plan, k4_plan)
 
 _CHUNK = 64
+
+
+@pytest.fixture(autouse=True)
+def _one_thread():
+    """The replays are thousands of small tensor operations: one intra-op
+    thread runs them fastest, and keeps parallel test workers from
+    oversubscribing the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def _box(t: torch.Tensor, coords, width: int, box_w: int, box_h: int,
@@ -80,21 +95,30 @@ def replay_k3(x, w, bias, pad, plan):
 
 
 def replay_k4(x, g, pad, plan):
-    """K4 computed box by box: per split, per pair of (tap, chunk) items and
-    output-channel tile, the pixel tiles of the split in order, summed
-    `flush_tiles` at a time and each sum added into a second sum, which is
-    the split's partial; then the partials summed over splits in order."""
+    """K4 computed box by box: per split, per block along the grid's x (its
+    one or two (tap, chunk) items, `plan.k4_items`) and output-channel
+    tile, the split's 128-pixel tiles in order, summed `flush_tiles` at a
+    time and each sum added into a second sum, which is the split's
+    partial; then `sum_splits`: the partials added over the splits in
+    order, into (O, C, 3, 3). A block's two x boxes come in one load only
+    for one tap's adjacent whole chunks (the pair map has no zero fill past
+    C), and each item is some block's exactly once."""
     xs, gs = _nhwc(x, plan.c_store), _nhwc(g, plan.o_store)
-    items = 9 * plan.kchunks
+    blocks = [plan.k4_items(j) for j in range(-(-9 * plan.kchunks // 2))]
+    items = [item for _, its in blocks for item in its]
+    assert sorted(items) == [(tap, k) for tap in range(9) for k in range(plan.kchunks)]
+    for paired, its in blocks:
+        if paired:
+            (t0, k0), (t1, k1) = its
+            assert t0 == t1 and k1 == k0 + 1 and (k1 + 1) * _CHUNK <= plan.c
     partial = torch.full((plan.splits, 9, _CHUNK * plan.kchunks, plan.bn * plan.n_tiles),
                          float("nan"))
     for s in range(plan.splits):
         t_range = range(s * plan.tiles_per_split,
                         min(plan.tiles, (s + 1) * plan.tiles_per_split))
         assert len(t_range) > 0  # every split has pixels
-        for pair in range(-(-items // 2)):
-            for item in range(2 * pair, min(2 * pair + 2, items)):
-                tap, chunk = divmod(item, plan.kchunks)
+        for _, its in blocks:
+            for tap, chunk in its:
                 for n in range(plan.n_tiles):
                     n0 = n * plan.bn
                     slot = None
@@ -164,23 +188,57 @@ def _k4_cases():
     for c, o, e, pad in _SITES:
         yield 1, c, o, e + 2 - 2 * pad, e + 2 - 2 * pad, pad
     yield from ((b, c, o, h, w, pad) for b, c, o, h, w, pad in _ODD if pad < 2)
-    yield 2, 64, 64, 64, 96, 1  # 192 tiles: more than one split on the H100's plan
+    yield 2, 64, 64, 64, 96, 1  # 96 tiles: more than one split on the H100's plan
+    # 256 outputs (two 128-wide tiles) over several splits; 136 channels:
+    # 27 items, so the last pair holds one.
+    yield 2, 72, 256, 34, 34, 1
+    yield 4, 136, 256, 34, 34, 0
+    # 200 channels: one pair of whole chunks a tap, then two chunks past it
+    # (the second partial), loaded a box each.
+    yield 2, 200, 136, 18, 20, 1
+
+
+@functools.lru_cache(maxsize=None)
+def _k4_replayed(b, c, o, h, w, pad):
+    """One K4 case's numpy inputs (x, g) and its replay, computed once for
+    the two tests that hold it to the plain version and to JAX."""
+    rng = np.random.default_rng(c + o + h + pad + 1)
+    x = rng.standard_normal((b, c, h, w)).astype(np.float32)
+    g = rng.standard_normal((b, o, h + 2 * pad - 2, w + 2 * pad - 2)).astype(np.float32)
+    return x, g, replay_k4(torch.from_numpy(x), torch.from_numpy(g), pad,
+                           k4_plan(b, h, w, c, o, pad))
 
 
 @pytest.mark.parametrize("b,c,o,h,w,pad", list(_k4_cases()))
 def test_k4_plan_replay_matches_plain(b, c, o, h, w, pad):
     plan = k4_plan(b, h, w, c, o, pad)
-    assert plan.box_w * plan.box_h == 64
+    assert plan.box_w * plan.box_h == 128
     assert (plan.splits - 1) * plan.tiles_per_split < plan.tiles <= plan.splits * plan.tiles_per_split
+    # The second sum takes the accumulator at least every K4_CHAIN wgmma (16 pixels each).
     assert 1 <= plan.flush_tiles <= plan.tiles_per_split
-    rng = np.random.default_rng(c + o + h + pad + 1)
-    x = torch.from_numpy(rng.standard_normal((b, c, h, w)).astype(np.float32))
-    g = torch.from_numpy(rng.standard_normal((b, o, h + 2 * pad - 2, w + 2 * pad - 2))
-                         .astype(np.float32))
-    ref = conv3x3_wgrad_plain(x, g, pad)
-    dw = replay_k4(x, g, pad, plan)
+    assert plan.flush_tiles * 128 <= K4_CHAIN * 16
+    x, g, dw = _k4_replayed(b, c, o, h, w, pad)
+    ref = conv3x3_wgrad_plain(torch.from_numpy(x), torch.from_numpy(g), pad)
     assert dw.shape == ref.shape and torch.isfinite(dw).all()
     assert (dw - ref).abs().max().item() <= 1e-5 * ref.abs().max().item()
+
+
+@pytest.mark.parametrize("b,c,o,h,w,pad", list(_k4_cases()))
+def test_k4_plan_replay_matches_jax_wgrad(b, c, o, h, w, pad):
+    """The same replay against the JAX package's `_wgrad`
+    (`jperceiver_tpu/ops/pallas/conv3x3.py:206-220`, XLA on the CPU in
+    fp32) on the same numpy inputs: fp32 sums in another order, within
+    1e-5 of the largest |dW|."""
+    import jax.numpy as jnp
+
+    from jperceiver_tpu.ops.pallas.conv3x3 import _wgrad
+
+    x, g, dw = _k4_replayed(b, c, o, h, w, pad)
+    ref = np.asarray(_wgrad(jnp.asarray(x.transpose(0, 2, 3, 1)),
+                            jnp.asarray(g.transpose(0, 2, 3, 1)), pad)).transpose(3, 2, 0, 1)
+    dw = dw.numpy()
+    assert dw.shape == ref.shape and np.isfinite(dw).all()
+    assert np.abs(dw - ref).max() <= 1e-5 * np.abs(ref).max()
 
 
 def test_plans_at_the_step_sites():
@@ -195,16 +253,36 @@ def test_plans_at_the_step_sites():
     p = k3_plan(1, 256, 256, 256, 513, 2)  # iconv's data-grad: 513 outputs stored 576
     assert (p.o_store, p.bn, p.n_tiles, p.c_store) == (576, 176, 3, 256)
     assert p.box_w * p.box_h == 128 and p.tiles * 128 < 1.1 * 258 * 258
-    # K4: at most 128 wide (the second fp32 sum in registers), its
-    # accumulator added into that sum every K4_CHAIN wgmma (16 pixels each),
-    # and the pixels split so that waves x (tiles a block + 4) is least.
+    # K4: 128-pixel tiles, at most 128 wide (the second fp32 sum in
+    # registers), its accumulator added into that sum every K4_CHAIN wgmma
+    # (16 pixels each: 2 tiles), and the pixels split so that waves x
+    # (tiles a block + 6) plus the partials' bytes is least.
     q = k4_plan(1, 258, 258, 513, 256, 0)
-    assert (q.box_w, q.box_h, q.bn, q.c_store, q.splits) == (64, 1, 128, 576, 8)
-    assert q.flush_tiles == K4_CHAIN // 4 < q.tiles_per_split == 128
+    assert (q.box_w, q.box_h, q.bn, q.c_store, q.splits) == (128, 1, 128, 576, 3)
+    assert q.flush_tiles * 128 == K4_CHAIN * 16 and q.tiles_per_split == 171
+    # 513 channels: 4 pairs of whole chunks a tap, each one x load, then the
+    # ninth chunk (one real channel, zero-filled past it) a box an item.
+    assert q.xpairs == 4 and q.k4_items(0) == (True, [(0, 0), (0, 1)])
+    assert q.k4_items(36) == (False, [(0, 8), (1, 8)]) and q.k4_items(40) == (False, [(8, 8)])
     q = k4_plan(3, 258, 258, 513, 256, 0)  # the preset fit's B = 3: 5 waves of 82 x 8 blocks
-    assert (q.bn, q.splits, q.tiles_per_split) == (128, 8, 384)
-    q = k4_plan(1, 66, 66, 513, 256, 0)  # 64 tiles: 3 splits of 22 in two waves
-    assert (q.splits, q.tiles_per_split, q.flush_tiles) == (3, 22, K4_CHAIN // 4)
+    assert (q.bn, q.splits, q.tiles_per_split) == (128, 8, 192)
+    q = k4_plan(8, 258, 258, 513, 256, 0)  # B = 8: the longest chains of the step's sites
+    assert (q.splits, q.tiles_per_split) == (8, 512)
+    q = k4_plan(1, 66, 66, 513, 256, 0)  # 32 tiles of 64 x 2: one split in two waves
+    assert (q.box_w, q.box_h, q.splits, q.tiles_per_split) == (64, 2, 1, 32)
     q = k4_plan(1, 256, 256, 64, 64, 1)  # 64 wide, 5 blocks a split: one wave of 26 splits
-    assert (q.bn, q.splits, q.flush_tiles) == (64, 26, K4_CHAIN // 4)
-    assert q.splits * q.tiles_per_split >= 1024
+    assert (q.bn, q.splits, q.tiles_per_split, q.xpairs) == (64, 26, 20, 0)
+    assert q.k4_items(0) == (False, [(0, 0), (1, 0)])  # one chunk: two taps a block
+    q = k4_plan(1, 64, 64, 256, 256, 1)  # 36 blocks a split: three splits in one wave
+    assert (q.box_w, q.box_h, q.splits, q.tiles_per_split, q.xpairs) == (64, 2, 3, 11, 2)
+    q = k4_plan(1, 128, 128, 128, 128, 1)  # 9 blocks a split: 13 splits in one wave
+    assert (q.bn, q.splits, q.tiles_per_split) == (128, 13, 10)
+
+
+@pytest.mark.parametrize("b,c,o,h,w,pad", [(1, 64, 64, 2, 2, 0), (0, 64, 64, 8, 8, 1),
+                                           (1, 64, 0, 8, 8, 1)])
+def test_k4_plan_refuses_no_work(b, c, o, h, w, pad):
+    """A launch with no output pixel, image or channel has no plan: the
+    wrapper raises on the card rather than run anything in its place."""
+    with pytest.raises(ValueError):
+        k4_plan(b, h, w, c, o, pad)

@@ -205,6 +205,67 @@ def test_conv3x3_wgrad_long_chains_at_b8(cuda):
     assert (a - ref).abs().max().item() <= 1e-4 * ref.abs().max().item()
 
 
+# (C, O, output extent, pad) of step sites whose K4 plan at B = 3 splits the
+# pixels (3 and 14 splits).
+_K4_B3_SITES = [(256, 256, 64, 1), (128, 128, 128, 1)]
+
+
+@pytest.mark.parametrize("c,o,e,pad", _K4_B3_SITES)
+def test_conv3x3_wgrad_b3_bit_for_bit(cuda, c, o, e, pad):
+    """K4 at the preset fit's B = 3 at a step site whose plan splits the
+    pixels: the same bits in two runs, and the plain version's values."""
+    from jperceiver_tpu_torch.ops.cuda import conv3x3_wgrad, conv3x3_wgrad_plain
+    from jperceiver_tpu_torch.ops.cuda.conv3x3 import _sm_count, k4_plan
+
+    hin = e + 2 - 2 * pad
+    assert k4_plan(3, hin, hin, c, o, pad, _sm_count(cuda.index or 0)).splits > 1
+    g = torch.Generator(device=cuda).manual_seed(c + e)
+    x = torch.randn(3, c, hin, hin, device=cuda, generator=g).bfloat16()
+    x = x.contiguous(memory_format=torch.channels_last)
+    gy = torch.randn(3, o, e, e, device=cuda, generator=g).bfloat16()
+    gy = gy.contiguous(memory_format=torch.channels_last)
+    a = conv3x3_wgrad(x, gy, pad)
+    b = conv3x3_wgrad(x, gy, pad)
+    ref = conv3x3_wgrad_plain(x, gy, pad)
+    torch.cuda.synchronize()
+    assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+    assert (a - ref).abs().max().item() <= 1e-4 * ref.abs().max().item()
+
+
+def test_conv3x3_wgrad_f64_distance_at_the_widest_site(cuda):
+    """K4 at 513 -> 256 @ 256^2, B = 3: its largest distance to float64
+    (cuDNN in fp64 on the same bf16 inputs) within 1.3x the plain
+    version's: the second fp32 sum keeps the long pixel chains about as
+    close as fp32 adds rounded to nearest."""
+    from jperceiver_tpu_torch.ops.cuda import conv3x3_wgrad, conv3x3_wgrad_plain
+
+    g = torch.Generator(device=cuda).manual_seed(3)
+    x = torch.randn(3, 513, 258, 258, device=cuda, generator=g).bfloat16()
+    x = x.contiguous(memory_format=torch.channels_last)
+    gy = torch.randn(3, 256, 256, 256, device=cuda, generator=g).bfloat16()
+    gy = gy.contiguous(memory_format=torch.channels_last)
+    dw = conv3x3_wgrad(x, gy, 0)
+    ref = conv3x3_wgrad_plain(x, gy, 0)
+    dw64 = torch.nn.grad.conv2d_weight(x.double(), dw.shape, gy.double(), padding=0)
+    err = (dw.double() - dw64).abs().max().item()
+    plain_err = (ref.double() - dw64).abs().max().item()
+    assert err <= 1.3 * plain_err
+
+
+def test_conv3x3_wgrad_refuses_without_fallback(cuda):
+    """A bf16 shape that K4's plan refuses (no output pixel) raises on the
+    card, and nothing runs in the kernel's place."""
+    from jperceiver_tpu_torch.ops.cuda import conv3x3_wgrad
+
+    x = torch.zeros(1, 64, 2, 2, device=cuda, dtype=torch.bfloat16)
+    x = x.contiguous(memory_format=torch.channels_last)
+    gy = torch.zeros(1, 64, 0, 0, device=cuda, dtype=torch.bfloat16)
+    reset_launch_counts()
+    with pytest.raises(ValueError):
+        conv3x3_wgrad(x, gy, 0)
+    assert launch_counts()["conv3x3_wgrad"] == 0
+
+
 @pytest.mark.parametrize("f", [2, 3])
 @pytest.mark.parametrize("dtype,b", [(torch.float32, 1), (torch.bfloat16, 1),
                                      (torch.bfloat16, 2), (torch.float32, 3)])
