@@ -14,7 +14,7 @@ data = dict(
     name="argoverse",
     type="Argo_dynamic",
     split="argo",
-    split_dir=None,          # point at a splits directory
+    split_dir=None,          # None: the packaged lists, data/artifacts/splits
     height=HEIGHT,
     width=WIDTH,
     frame_ids=FRAME_IDS,

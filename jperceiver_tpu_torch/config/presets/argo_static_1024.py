@@ -11,7 +11,7 @@ data = dict(
     name="argoverse",
     type="Argo_static",
     split="argo",
-    split_dir=None,          # point at a splits directory
+    split_dir=None,          # None: the packaged lists, data/artifacts/splits
     height=HEIGHT,
     width=WIDTH,
     frame_ids=FRAME_IDS,

@@ -10,7 +10,7 @@ data = dict(
     name="kitti_object",
     type="dynamic",
     split="3Dobject",
-    split_dir=None,          # point at a splits directory
+    split_dir=None,          # None: the packaged lists, data/artifacts/splits
     height=HEIGHT,
     width=WIDTH,
     frame_ids=FRAME_IDS,

@@ -12,7 +12,7 @@ data = dict(
     name="kitti_odom",
     type="static",
     split="odometry",
-    split_dir=None,          # point at a splits directory
+    split_dir=None,          # None: the packaged lists, data/artifacts/splits
     height=HEIGHT,
     width=WIDTH,
     frame_ids=FRAME_IDS,

@@ -11,7 +11,7 @@ data = dict(
     name="kitti",
     type="static_raw",
     split="raw",
-    split_dir=None,          # point at a splits directory
+    split_dir=None,          # None: the packaged lists, data/artifacts/splits
     height=HEIGHT,
     width=WIDTH,
     frame_ids=FRAME_IDS,

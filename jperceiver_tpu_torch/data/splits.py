@@ -3,17 +3,72 @@
 dataset class, and the file datasets read the split list
 `<split_dir>/<split>/{train,val}_files.txt`.
 
-The port ships no split lists: a file dataset needs `data.split_dir`. The
-JAX package's lists (`jperceiver_tpu/data/artifacts/splits`) are in that
-layout, and `scan_odometry_split` / `scan_object_split` (`tools/make_splits`)
-write them from a dataset tree. The simulated dataset needs no files; the
-EuRoC, ETH3D and folder datasets scan their directory.
+The port ships the standard split lists of every split family and KITTI's
+odometry ground-truth poses in `data/artifacts/artifacts.tar.xz`
+(`artifacts/README.md`), unpacked beside it on first use:
+`default_split_dir()` is the split directory when `data.split_dir` is
+unset, and `default_gt_pose_dir()` the poses `tools/draw_odometry` scores
+against without `--gt_dir`. `scan_odometry_split` / `scan_object_split`
+(`tools/make_splits`) write lists in that layout from a dataset tree. The
+simulated dataset needs no files; the EuRoC, ETH3D and folder datasets scan
+their directory.
 """
 
 from __future__ import annotations
 
 import os
 from typing import Sequence
+
+ARTIFACTS_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "artifacts")
+ARTIFACTS_ARCHIVE = os.path.join(ARTIFACTS_DIR, "artifacts.tar.xz")
+_ARTIFACT_DIRS = ("splits", "gt_pose")
+
+
+def unpack_artifacts(archive: str = ARTIFACTS_ARCHIVE, dest: str = ARTIFACTS_DIR) -> None:
+    """Unpacks `archive`'s `splits/` and `gt_pose/` into `dest`, unless both
+    are there. Each directory appears whole or not at all (unpacked into a
+    temporary directory in `dest`, then renamed), so processes that unpack
+    at once all find complete lists; a directory already there is kept, with
+    any edits made to it."""
+    import shutil
+    import tarfile
+    import tempfile
+
+    if all(os.path.isdir(os.path.join(dest, d)) for d in _ARTIFACT_DIRS):
+        return
+    tmp = tempfile.mkdtemp(prefix=".unpack-", dir=dest)
+    try:
+        with tarfile.open(archive, "r:xz") as tar:
+            tar.extractall(tmp, filter="data")
+        for d in _ARTIFACT_DIRS:
+            try:
+                os.rename(os.path.join(tmp, d), os.path.join(dest, d))
+            except OSError:
+                if not os.path.isdir(os.path.join(dest, d)):
+                    raise
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def _packaged(name: str) -> str | None:
+    d = os.path.join(ARTIFACTS_DIR, name)
+    if not os.path.isdir(d) and os.path.isfile(ARTIFACTS_ARCHIVE):
+        unpack_artifacts()
+    return d if os.path.isdir(d) else None
+
+
+def default_split_dir() -> str | None:
+    """The packaged split lists, `data/artifacts/splits` (unpacked from the
+    archive on first use); None if the package has neither."""
+    return _packaged("splits")
+
+
+def default_gt_pose_dir() -> str | None:
+    """The packaged KITTI odometry ground-truth poses (`<seq>.txt`, 3x4
+    rows), `data/artifacts/gt_pose` (unpacked from the archive on first
+    use); None if the package has neither."""
+    return _packaged("gt_pose")
+
 
 def readlines(path: str) -> list[str]:
     with open(path) as f:
@@ -89,11 +144,11 @@ def get_dataset(data_cfg, training: bool = True, with_sdf: bool = False,
         return FolderDataset(data_cfg["in_path"], data_cfg["height"], data_cfg["width"],
                              intrinsics=data_cfg.get("intrinsics", "kitti"))
 
-    split_dir = data_cfg.get("split_dir")
+    split_dir = data_cfg.get("split_dir") or default_split_dir()
     if split_dir is None:
         raise ValueError(
-            "data.split_dir must point at a directory of split lists "
-            "(<split>/train_files.txt, <split>/val_files.txt)")
+            "data.split_dir must point at a splits directory "
+            "(the packaged data/artifacts/artifacts.tar.xz is missing)")
     sfile = split_file(split_dir, data_cfg["split"], training)
     if not os.path.isfile(sfile):
         have = sorted(

@@ -19,6 +19,7 @@ one-process step at W * B.
 
 from __future__ import annotations
 
+import contextlib
 import os
 import queue
 import threading
@@ -40,6 +41,21 @@ _LABELS = ("bev_static", "bev_dynamic")
 _PROFILE_STEPS = (10, 15)
 
 
+@contextlib.contextmanager
+def deterministic_cudnn():
+    """The step's cuDNN convolutions on deterministic algorithms (cuDNN's
+    other flags as they are), restored after: the algorithm cuDNN picks for
+    a backward may otherwise add atomically, and the step would not repeat
+    bit for bit on the card."""
+    cudnn = torch.backends.cudnn
+    before = cudnn.deterministic
+    cudnn.deterministic = True
+    try:
+        yield
+    finally:
+        cudnn.deterministic = before
+
+
 def batch_to(batch: dict, device, non_blocking: bool = False) -> dict:
     """numpy arrays or tensors -> tensors on `device`: the label maps as
     int64, floating arrays in their own dtype, anything else as fp32."""
@@ -58,7 +74,11 @@ class TrainStep:
     and `grad_norm` (the global norm before the clip), as 0-d tensors on the
     device. It holds what a checkpoint of the run needs: `model`,
     `optimizer`, `iteration` (steps taken, which the schedule reads) and
-    `generator` (dropout and the automask noise).
+    `generator` (dropout and the automask noise). The step repeats bit for
+    bit on the card: from the same state and batch it gives the same
+    gradients and weights (cuDNN on its deterministic algorithms,
+    `deterministic_cudnn`; the step's functions whose CUDA backward adds
+    atomically have backwards that add in a fixed order).
 
     Under a process group `model` stays the module itself and `ddp` is its
     `DistributedDataParallel` wrapper, which runs the forward: the clip
@@ -105,10 +125,12 @@ class TrainStep:
         batch = batch_to(batch, self.device)
         set_lr(self.optimizer, self.schedule, self.iteration)
         self.optimizer.zero_grad(set_to_none=True)
-        outputs = self.ddp(batch, train=True, generator=self.generator)
-        losses = compute_losses(outputs, batch, self.cfg, noise=noise, generator=self.generator)
-        loss = total_loss(losses)
-        loss.backward()
+        with deterministic_cudnn():
+            outputs = self.ddp(batch, train=True, generator=self.generator)
+            losses = compute_losses(outputs, batch, self.cfg, noise=noise,
+                                    generator=self.generator)
+            loss = total_loss(losses)
+            loss.backward()
         grads = [p.grad for p in self.params if p.grad is not None]
         norm = global_norm(grads)
         if self.clip is not None:

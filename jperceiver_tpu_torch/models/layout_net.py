@@ -66,6 +66,27 @@ class CycledViewProjection(nn.Module):
         return transform, self.retransform_module(transform)
 
 
+class _GatherRows(torch.autograd.Function):
+    """(B, N, C) rows, (B, M) indices -> (B, M, C): `t[b, j] = v[b, idx[b, j]]`.
+    The forward is `torch.gather`; the backward is the one-hot product
+    `onehot(idx)^T @ g` in fp32, where `gather`'s backward (`scatter_add`)
+    adds the cotangents of rows picked more than once atomically, in an
+    order that changes from run to run on CUDA."""
+
+    @staticmethod
+    def forward(ctx, v, idx):
+        ctx.save_for_backward(idx)
+        ctx.n, ctx.dtype = v.shape[1], v.dtype
+        return torch.gather(v, 1, idx[..., None].expand(-1, -1, v.shape[2]))
+
+    @staticmethod
+    def backward(ctx, g):
+        (idx,) = ctx.saved_tensors
+        acc = torch.promote_types(g.dtype, torch.float32)
+        onehot = F.one_hot(idx, ctx.n).to(acc)  # (B, M, N)
+        return torch.bmm(onehot.transpose(1, 2), g.to(acc)).to(ctx.dtype), None
+
+
 class CrossViewTransformer(nn.Module):
     """CCT attention.
 
@@ -105,7 +126,7 @@ class CrossViewTransformer(nn.Module):
         energy = torch.bmm(k, q.transpose(1, 2))
         score = energy.amax(1)
         idx = energy.argmax(1)
-        t = torch.gather(v, 1, idx[..., None].expand(-1, -1, c))
+        t = _GatherRows.apply(v, idx)
         t = t.transpose(1, 2).reshape(b, c, h, w)
         s_map = score.reshape(b, 1, h, w)
         fused = self.f_conv(torch.cat([front_x, t], 1))

@@ -18,9 +18,50 @@ def resize_bilinear(img: torch.Tensor, out_h: int, out_w: int) -> torch.Tensor:
     `jax.image.resize` widens its triangle kernel by the downsampling
     factor; `antialias=True` is the same filter. Without it the 1024^2 ->
     192x640 pose resize differs from the JAX package by up to 0.47.
+
+    The forward is `F.interpolate`; the backward is the resize's transpose
+    as two products with its interpolation matrices (`_ResizeBilinear`),
+    where CUDA's interpolate backward adds atomically, in an order that
+    changes from run to run.
     """
+    return _ResizeBilinear.apply(img, out_h, out_w)
+
+
+def _interpolate(img: torch.Tensor, out_h: int, out_w: int) -> torch.Tensor:
     return F.interpolate(img, size=(out_h, out_w), mode="bilinear",
                          align_corners=False, antialias=True)
+
+
+_RESIZE_MATRICES: dict = {}
+
+
+def _resize_matrix(n_in: int, n_out: int, like: torch.Tensor) -> torch.Tensor:
+    """The (n_in, n_out) weights of the 1-D resize n_in -> n_out, entry
+    (k, j) the weight of input k in output j, as the forward computes them:
+    the resize of the identity along one axis (the other axis kept, whose
+    weights are 1 and 0). Cached by size, dtype and device."""
+    key = (n_in, n_out, like.dtype, like.device)
+    m = _RESIZE_MATRICES.get(key)
+    if m is None:
+        eye = torch.eye(n_in, dtype=like.dtype, device=like.device)[None, None]
+        m = _RESIZE_MATRICES[key] = _interpolate(eye, n_in, n_out)[0, 0]
+    return m
+
+
+class _ResizeBilinear(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, img, out_h, out_w):
+        ctx.in_hw = img.shape[-2:]
+        return _interpolate(img, out_h, out_w)
+
+    @staticmethod
+    def backward(ctx, g):
+        (h, w), (oh, ow) = ctx.in_hw, g.shape[-2:]
+        gi = g
+        if (oh, ow) != (h, w):
+            # out = Wh^T x Ww, so d/dx = Wh g Ww^T.
+            gi = _resize_matrix(h, oh, g) @ g @ _resize_matrix(w, ow, g).T
+        return gi, None, None
 
 
 def upsample2x_nearest(img: torch.Tensor) -> torch.Tensor:

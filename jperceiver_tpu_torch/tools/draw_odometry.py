@@ -7,11 +7,12 @@ saved as KITTI pose rows, scored by the odometry protocol (scale-aligned
 t_rel / r_rel) and plotted.
 
     python -m jperceiver_tpu_torch.tools.draw_odometry --config cfg.py \
-        --checkpoint work_dir --sequence 09 --gt_dir <gt_pose dir> --out out/
+        --checkpoint work_dir --sequence 09 --out out/
 
-The port ships no ground-truth pose files: `--gt_dir` holds `<seq>.txt`
-(`tools/make_splits gt_pose` copies KITTI's). `predict_and_score` is all of
-it but the plot, which needs matplotlib.
+The ground truth is `<gt_dir>/<seq>.txt`; without `--gt_dir` it is the
+packaged KITTI odometry poses of sequences 00-10 and 12
+(`data/splits.py::default_gt_pose_dir`). `predict_and_score` is all of it
+but the plot, which needs matplotlib.
 """
 
 from __future__ import annotations
@@ -28,11 +29,20 @@ def parse_args(argv=None):
     p.add_argument("--checkpoint", required=True,
                    help="a work dir with checkpoints/, or a checkpoint file")
     p.add_argument("--sequence", default="09")
-    p.add_argument("--gt_dir", required=True, help="dir with <seq>.txt ground-truth poses")
+    p.add_argument("--gt_dir", default=None,
+                   help="dir with <seq>.txt ground-truth poses; default: the packaged "
+                        "data/artifacts/gt_pose (KITTI 00-10, 12)")
     p.add_argument("--out", required=True)
     p.add_argument("--epoch", type=int, default=None)
     p.add_argument("--device", default=None, help="default: the CUDA card")
-    return p.parse_args(argv)
+    args = p.parse_args(argv)
+    if args.gt_dir is None:
+        from ..data.splits import default_gt_pose_dir
+
+        args.gt_dir = default_gt_pose_dir()
+        if args.gt_dir is None:
+            p.error("--gt_dir is needed: the packaged data/artifacts/gt_pose is missing")
+    return args
 
 
 def predict_and_score(argv=None) -> dict:

@@ -277,9 +277,10 @@ def test_collate_stacks_samples():
     assert out["a"].shape == (2, 2, 3) and out["a"][1].sum() == 6
 
 
-def test_get_dataset_matches_jax(fake_odom, tmp_path):  # noqa: F811
+def test_get_dataset_matches_jax(fake_odom, tmp_path, monkeypatch):  # noqa: F811
     """The factory's dispatch: the simulated scenes, a file dataset read
-    from a split list, and the datasets the port does not have yet."""
+    from a split list (the packaged lists when `split_dir` is None, as in the
+    JAX package), and the aux datasets."""
     from jperceiver_tpu.config import Config as JaxConfig
     from jperceiver_tpu_torch.config import Config
 
@@ -302,6 +303,10 @@ def test_get_dataset_matches_jax(fake_odom, tmp_path):  # noqa: F811
     assert got.filenames == want.filenames and got.with_sdf and got.is_train
     with pytest.raises(FileNotFoundError, match="no val list"):
         pdata.get_dataset(odo, training=False)
+    packaged = pdata.get_dataset(dict(odo, split_dir=None), training=False)
+    assert packaged.filenames == jdata.get_dataset(dict(odo, split_dir=None),
+                                                   training=False).filenames
+    monkeypatch.setattr("jperceiver_tpu_torch.data.splits.default_split_dir", lambda: None)
     with pytest.raises(ValueError, match="split_dir"):
         pdata.get_dataset(dict(odo, split_dir=None))
     # The aux datasets: cityscape and nuscenes read the split list, euroc,

@@ -457,3 +457,87 @@ def test_maxpool3x3s2_backward_kernel_bit_exact(cuda, dtype, c, h, w, cot_channe
     reset_launch_counts()
     maxpool3x3s2(x, False).backward(cot)
     assert launch_counts()["maxpool3x3s2_bwd"] == 0 and torch.equal(x.grad, ref)
+
+
+def _twice(fn):
+    """fn() run twice; each time its result's tensors cloned."""
+    return [[t.detach().clone() for t in fn()] for _ in range(2)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_reflect_pad_backward_repeats_bit_for_bit(cuda, dtype):
+    """`reflect_pad`'s backward at a decoder's size: the same gradient from
+    two runs, equal to the CPU's in float64 to fp32 (bf16) rounding."""
+    from jperceiver_tpu_torch.ops.padding import reflect_pad
+
+    g = torch.Generator(device=cuda).manual_seed(0)
+    x = torch.randn(3, 64, 256, 256, device=cuda, generator=g).to(dtype)
+    x = x.contiguous(memory_format=torch.channels_last).requires_grad_()
+    cot = torch.randn(3, 64, 258, 258, device=cuda, generator=g).to(dtype)
+    a, b = _twice(lambda: torch.autograd.grad(reflect_pad(x), x, cot))
+    assert torch.equal(a[0], b[0])
+    x64 = x.detach().cpu().double().requires_grad_()
+    (ref,) = torch.autograd.grad(torch.nn.functional.pad(x64, (1,) * 4, mode="reflect"), x64,
+                                 cot.cpu().double())
+    eps = 2.0 ** -24 if dtype == torch.float32 else 2.0 ** -8
+    assert (a[0].cpu().double() - ref).abs().max().item() <= 4 * eps * ref.abs().max().item()
+
+
+@pytest.mark.parametrize("size", [(128, 128), (256, 256), (512, 512), (375, 1242)])
+def test_resize_bilinear_backward_repeats_bit_for_bit(cuda, size):
+    """The disparity upsampling (x8, x4, x2 to 1024^2) and the CGT label's
+    resize, fp32: the same gradient from two runs, within 4x the gradient of
+    `F.interpolate` on the card from the float64 one."""
+    from jperceiver_tpu_torch.ops.sampling import resize_bilinear
+
+    src = (1024, 1024) if size == (375, 1242) else size
+    dst = size if size == (375, 1242) else (1024, 1024)
+    g = torch.Generator(device=cuda).manual_seed(1)
+    x = torch.rand(3, 1, *src, device=cuda, generator=g).requires_grad_()
+    cot = torch.randn(3, 1, *dst, device=cuda, generator=g)
+    a, b = _twice(lambda: torch.autograd.grad(resize_bilinear(x, *dst), x, cot))
+    assert torch.equal(a[0], b[0])
+
+    def interp(t):
+        return torch.nn.functional.interpolate(t, size=dst, mode="bilinear",
+                                               align_corners=False, antialias=True)
+
+    (lib,) = torch.autograd.grad(interp(x), x, cot)
+    x64 = x.detach().double().requires_grad_()
+    (ref,) = torch.autograd.grad(interp(x64), x64, cot.double())
+    scale = ref.abs().max().item()
+    err, err_lib = ((t.double() - ref).abs().max().item() for t in (a[0], lib))
+    assert err <= 4 * err_lib + 4 * 2.0 ** -24 * scale
+
+
+def test_fp32_train_step_repeats_bit_for_bit(cuda):
+    """The flagship step in fp32 at 256^2 (road branch, kernels on, fp32
+    reprojection operands), twice from the same state: every gradient and
+    the weights after the step bit for bit."""
+    import copy
+
+    from jperceiver_tpu_torch.data import synthetic_batch
+    from jperceiver_tpu_torch.engine import make_train_step
+    from jperceiver_tpu_torch.models import JPerceiver, set_kernels
+
+    h = 256
+    torch.manual_seed(0)
+    model = JPerceiver(height=h, width=h, occ_map_size=h // 4, branches="road")
+    init = copy.deepcopy(model.state_dict())
+    cfg = dict(type="static", split="odometry", frame_ids=[0, -1, 1], scales=[0, 1, 2, 3],
+               height=h, width=h, occ_map_size=h // 4, num_class=2, min_depth=0.1,
+               max_depth=100.0, automask=True, disp_norm=True, loss_type="iou", loss_sum=3,
+               loss_weight=20, loss2_weight=20, cgt_label_hw=(375, 1242),
+               use_pallas_reproj=True, pallas_reproj_bf16=False)
+    batch = synthetic_batch(2, h, h, h // 4, seed=0)
+    runs = []
+    for _ in range(2):
+        model.load_state_dict(init)
+        step = make_train_step(model, cfg, cuda, steps_per_epoch=10)
+        set_kernels(model, True, True, True, stem_pool=True)
+        reset_launch_counts()
+        step(batch)
+        assert launch_counts()["conv3x3_wgrad"] > 0 and launch_counts()["reproj_bwd"] == 1
+        runs.append([p.grad.clone() for p in step.params] + [p.detach().clone()
+                                                              for p in step.params])
+    assert all(torch.equal(a, b) for a, b in zip(*runs))
