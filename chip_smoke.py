@@ -22,10 +22,12 @@ Phases, each of which raises on failure:
      both pools also at phase 9's B=3 in bf16 at the step's shapes;
   4. the eval step at 1024^2, occ 256, both BEV branches, with pose, random
      weights from a seed: fp32 with the kernels on against off (cuDNN and
-     the plain pool, TF32 off), bf16 finite and timed both ways, kernel
-     launches counted on the main path and in a profiler trace;
-  5. streaming inference over 9 frames at 1024^2 in bf16, chunk 4, its
-     kernel launches counted and its rotations checked orthonormal;
+     the plain pool, TF32 off), bf16 finite and timed both ways (the eager
+     step, graph=False), kernel launches counted on the main path (the
+     captured step, a replay) and in a profiler trace of a replay;
+  5. streaming inference over 9 frames at 1024^2 in bf16, chunk 4 (each
+     chunk a replay of its graph after a warm-up run), its kernel launches
+     counted and its rotations checked orthonormal;
   6. K1/K2 (reprojection loss forward/backward; K2 routed by K1's code)
      against their plain versions at the training step's shapes, bf16 and
      fp32, B=2 bf16 and F=3, with exact frame ties, K1 fused over the warped
@@ -48,9 +50,10 @@ Phases, each of which raises on failure:
      kernels on against off, both against the step in float64 (losses and
      gradients; the library route's own spread under a rounding-level
      change of the input sets each gradient's bound), bf16 for 20 steps on
-     one batch (finite, falling loss, BatchNorm statistics moving),
-     frames/s with the kernels on and off in turns, the kernel launches of
-     one step from the counters and a profiler trace (K1 once, the CRP
+     one batch (finite, falling loss, BatchNorm statistics moving; the
+     captured step), frames/s with the kernels on and off in turns (the
+     eager step), the kernel launches of one step (a replay of the captured
+     step) from the counters and a profiler trace (K1 once, the CRP
      pools' backward kernel 16 times and the stem pools' 4, no cotangent
      copied), its device operations, busy time, idle share and peak memory;
   9. the kitti_odom_1024 preset trained through the port's entry points
@@ -120,7 +123,22 @@ Phases, each of which raises on failure:
      gradients differ), phase 8's bf16 step twice; the bf16 step's device
      time with the parent's and the port's formulations in turns; the
      operations that warn under deterministic algorithms. It fails unless
-     the port's fp32 and bf16 steps repeat bit for bit.
+     the port's fp32 and bf16 steps repeat bit for bit (all eager steps);
+ 15. graph: the entry points as CUDA graphs (`engine/graphs.py`, the
+     counterpart of the JAX package's jit) against their eager twins
+     (graph=False), at 1024^2: phase 8's step in fp32 and bf16 and the
+     fit's step (B=3, remat, bf16), 3 steps each across an LR milestone
+     (fp32, bf16), every metric, gradient, weight, Adam moment, BatchNorm
+     statistic and the generator bit for bit; the eval step and streaming
+     (10 frames, chunks 4, 4, 1) bit for bit; `linalg.inv_ex` as `inv`;
+     each hand kernel's launches in a profiled replay by name equal to the
+     eager step's counters (phases 8 and 9) and the replay's; a captured
+     `.item()` raises; times
+     captured against eager (not gated).
+
+Phases 9, 10 and 13 run the step and the eval hook's forward as CUDA
+graphs, the default on the card (`make_train_step(graph=None)`); the
+counters add a graph's launches at each replay.
 
 Prints the card line, a JSON line describing every kernel (with its
 launches in phases 8-11 and 13), and last the device line. Full results go to
@@ -249,6 +267,15 @@ def take_spins() -> dict:
            "min_reps": min((s["reps"] for s in SPINS), default=0)}
     SPINS.clear()
     return out
+
+
+def _device_events(prof) -> list:
+    """A profiler trace's operations on the device (kernels, copies, sets),
+    without its GPU user annotations: the optimizer's `Optimizer.step#...`
+    range is a device event whose duration is the span of the optimizer's
+    work, not work, and summed with the kernels it counted them twice."""
+    return [e for e in prof.events()
+            if e.device_type.name == "CUDA" and not getattr(e, "is_user_annotation", False)]
 
 
 def bound_ms(n_bytes: float, n_ops: float, peak: float) -> tuple[float, str]:
@@ -430,7 +457,7 @@ def phase_k5(torch) -> dict:
                     maxpool5x5_bwd_plain(x, y, cot)
                     torch.cuda.synchronize()
                 row["plain_bwd_device_ops"] = sum(
-                    1 for e in prof.events() if e.device_type.name == "CUDA")
+                    1 for e in _device_events(prof))
         row["spins"] = take_spins()
         rows.append(row)
         log(f"K5 {row}")
@@ -502,7 +529,7 @@ def phase_stem_pool(torch) -> dict:
                     maxpool3x3s2_bwd_plain(x, y, cot)
                     torch.cuda.synchronize()
                 row["plain_device_ops"] = sum(
-                    1 for e in prof.events() if e.device_type.name == "CUDA")
+                    1 for e in _device_events(prof))
         row["spins"] = take_spins()
         rows.append(row)
         log(f"stem pool backward {row}")
@@ -560,9 +587,10 @@ def phase_eval(torch) -> dict:
     cfg_on = {"use_pallas_conv": True, "use_pallas_conv_deep": True}
     res = {}
 
-    # fp32, kernels on against off.
+    # fp32, kernels on against off: the eager step (graph=False), whose
+    # forward the CCT probes' hooks see and whose routing set_kernels turns.
     model = build_model(torch, torch.float32)
-    step = make_eval_step(model, cfg_on)
+    step = make_eval_step(model, cfg_on, graph=False)
     probes_on, probes_off = [], []
     hooks = cct_probe(torch, model, probes_on)
     out_on = step(batch)
@@ -600,9 +628,10 @@ def phase_eval(torch) -> dict:
     log(f"fp32 on vs off: {json.dumps(cmp)}\nCCT argmax: {flips}")
     del model, step, out_on, out_off
 
-    # bf16: finite, and ms/frame with the kernels on and off, in turns.
+    # bf16: finite, and ms/frame with the kernels on and off, in turns, on
+    # the eager step (graph=False; phase 15 times the captured one).
     model = build_model(torch, torch.bfloat16)
-    step = make_eval_step(model, cfg_on)
+    step = make_eval_step(model, cfg_on, graph=False)
 
     def step_ms(on: bool, steps: int = 25) -> list[float]:
         """Latency of single-frame requests: host clock, synchronized."""
@@ -631,8 +660,14 @@ def phase_eval(torch) -> dict:
                     "p90": v[int(0.9 * len(v))], "min": v[0]}
     res["bf16_ms_per_frame"] = times
 
-    # The main path: counts set to 0 just before, read just after.
+    # The main path, the step as a user gets it (a CUDA graph): warmed up
+    # and captured first; counts set to 0 just before a replay, read just
+    # after.
     set_kernels(model, True, True, True)
+    step = make_eval_step(model, cfg_on)
+    for _ in range(2):
+        step(batch)
+    torch.cuda.synchronize()
     kernels.reset_launch_counts()
     out = step(batch)
     torch.cuda.synchronize()
@@ -648,7 +683,7 @@ def phase_eval(torch) -> dict:
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         step(batch)
         torch.cuda.synchronize()
-    dev = [e for e in prof.events() if e.device_type.name == "CUDA"]
+    dev = _device_events(prof)
     names = Counter(e.name for e in dev)
     busy = Counter()
     for e in dev:
@@ -678,7 +713,7 @@ def phase_stream(torch, n_k3: int) -> dict:
     run = make_streaming_fn(model, chunk=4)
     g = torch.Generator(device="cuda").manual_seed(2)
     frames = torch.rand(9, 3, HW, HW, device="cuda", generator=g)
-    run(frames)  # warm-up
+    run(frames)  # warm-up: the first chunk runs eagerly, the second captures
     torch.cuda.synchronize()
     kernels.reset_launch_counts()
     t0 = time.perf_counter()
@@ -1115,9 +1150,10 @@ def phase_train(torch) -> dict:
             model = build_model(torch, dtype, "road").double()
             run_batch = {k: v.double() if v.is_floating_point() else v for k, v in batch.items()}
         model.load_state_dict(init)
+        # Eager (graph=False): the CCT probes' hooks see its forward.
         step = make_train_step(model, dict(TRAIN_CFG, use_pallas_reproj=on,
                                            pallas_reproj_bf16=False), seed=0,
-                               steps_per_epoch=STEPS_PER_EPOCH)
+                               steps_per_epoch=STEPS_PER_EPOCH, graph=False)
         set_kernels(model, on, on, on, stem_pool=on)
         probes = []
         hooks = cct_probe(torch, model, probes)
@@ -1174,10 +1210,12 @@ def phase_train(torch) -> dict:
     if not (all(math.isfinite(v) for v in losses) and losses[-1] < losses[0] and moved > 0):
         raise AssertionError(f"bf16 training: losses {losses}, BN change {moved}")
 
-    # Frames/s, kernels on and off in turns (host clock, synchronized; B=1).
+    # Frames/s, kernels on and off in turns (host clock, synchronized; B=1),
+    # of the eager step (graph=False; phase 15 times the captured one).
     step_off = make_train_step(model, dict(TRAIN_CFG, use_pallas_reproj=False), seed=2,
-                               steps_per_epoch=STEPS_PER_EPOCH)
-    step_on = make_train_step(model, TRAIN_CFG, seed=3, steps_per_epoch=STEPS_PER_EPOCH)
+                               steps_per_epoch=STEPS_PER_EPOCH, graph=False)
+    step_on = make_train_step(model, TRAIN_CFG, seed=3, steps_per_epoch=STEPS_PER_EPOCH,
+                              graph=False)
 
     def turn(on: bool, n: int = 5) -> list[float]:
         set_kernels(model, on, on, on, stem_pool=on)
@@ -1206,8 +1244,13 @@ def phase_train(torch) -> dict:
     res["bf16_frames_per_s"] = fps
     log(f"train bf16 frames/s {fps}")
 
-    # The main path: counts set to 0 just before one step, read just after.
+    # The main path, the step as a user gets it (a CUDA graph), warmed up
+    # and captured first: counts set to 0 just before one step (a replay),
+    # read just after.
     set_kernels(model, True, True, True, stem_pool=True)
+    step_on = make_train_step(model, TRAIN_CFG, seed=3, steps_per_epoch=STEPS_PER_EPOCH)
+    for _ in range(2):
+        step_on(batch)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     kernels.reset_launch_counts()
@@ -1222,7 +1265,7 @@ def phase_train(torch) -> dict:
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         step_on(batch)
         torch.cuda.synchronize()
-    dev = [e for e in prof.events() if e.device_type.name == "CUDA"]
+    dev = _device_events(prof)
     names = Counter(e.name for e in dev)
     busy = Counter()
     for e in dev:
@@ -1292,15 +1335,17 @@ class _RecordingLoader:
 
 
 class _RecordingStep:
-    """The Trainer's step, keeping each step's metrics on the card (no
-    synchronisation); every other attribute is the step's."""
+    """The Trainer's step, keeping a copy of each step's metrics on the card
+    (no synchronisation; a captured step's metrics are its graph's static
+    outputs, which the next step writes over); every other attribute is the
+    step's."""
 
     def __init__(self, step):
         self.step, self.metrics = step, []
 
     def __call__(self, batch):
         m = self.step(batch)
-        self.metrics.append(m)
+        self.metrics.append({k: v.clone() for k, v in m.items()})
         return m
 
     def __getattr__(self, name):
@@ -1442,7 +1487,7 @@ def phase_fit(torch, train_sites) -> dict:
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         trainer.fit(FIT_EPOCHS + 1, start_epoch=FIT_EPOCHS)
         torch.cuda.synchronize()
-    dev = [e for e in prof.events() if e.device_type.name == "CUDA"]
+    dev = _device_events(prof)
     names = Counter(e.name for e in dev)
     busy_ms = sum(e.time_range.elapsed_us() for e in dev) / 1e3
     span_ms = (max(e.time_range.end for e in dev) - min(e.time_range.start for e in dev)) / 1e3
@@ -1458,6 +1503,29 @@ def phase_fit(torch, train_sites) -> dict:
     res["profiled_epoch"] = {"device_busy_ms": busy_ms, "device_span_ms": span_ms,
                              "idle_share": 1 - busy_ms / span_ms,
                              "data_wait_s": sum(trainer.data_wait_s[-1])}
+    res["captures"] = trainer.train_step.graphs.captures
+    res["capture_s"] = trainer.train_step.graphs.capture_s
+    del trainer, rec
+
+    # The eager twin of the same fit (graph=False, the same weights and
+    # scenes, no callbacks), for phase 15: frames/s past start-up.
+    torch.manual_seed(0)
+    elogs = []
+    eager = Trainer(build_model(mcfg), cfg, loader, steps, log_fn=elogs.append,
+                    log_interval=steps, graph=False)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    eager.fit(FIT_EPOCHS)
+    torch.cuda.synchronize()
+    t_fit = time.perf_counter() - t0
+    secs = [p["seconds"] for p in elogs if p["mode"] == "epoch_time"][-1]
+    first = eager.data_wait_s[-1][0]
+    res["eager_twin"] = {"graphed": eager.train_step.graphed, "fit_s": t_fit,
+                         "frames_per_s": FIT_EPOCHS * steps * batch_size / t_fit,
+                         "steady_frames_per_s": steps * batch_size / (secs - first),
+                         "losses": [p["loss"] for p in elogs if p["mode"] == "train"]}
+    del eager
+    torch.cuda.empty_cache()
     log(f"fit: {json.dumps({k: v for k, v in res.items() if k != 'payloads'})}")
     return res
 
@@ -1968,13 +2036,18 @@ def phase_kitti(torch, card: str, per_step: dict, n_k3: int) -> dict:
                                                       - last["data_wait_first_batch_s"])
         waits = last["data_wait_steps_s"][1:]
         res["steady_data_wait_per_step_s"] = sum(waits) / len(waits)
+        # The loader sets the pace where the loop waits for batches past
+        # start-up for more than a tenth of the epoch.
+        steady_s = last["seconds"] - last["data_wait_first_batch_s"]
+        res["steady_data_wait_share"] = sum(waits) / steady_s
+        res["loader_sets_pace"] = res["steady_data_wait_share"] > 0.1
 
         # One more epoch under the profiler, without validation: the idle share.
         trainer.eval_hook = None
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             trainer.fit(FIT_EPOCHS + 1, start_epoch=FIT_EPOCHS)
             torch.cuda.synchronize()
-        dev = [e for e in prof.events() if e.device_type.name == "CUDA"]
+        dev = _device_events(prof)
         busy_ms = sum(e.time_range.elapsed_us() for e in dev) / 1e3
         span_ms = (max(e.time_range.end for e in dev)
                    - min(e.time_range.start for e in dev)) / 1e3
@@ -2145,7 +2218,9 @@ def child_repeat(torch, d: str) -> dict:
         model.load_state_dict(init[dt])
         cfg = TRAIN_CFG if dt == torch.bfloat16 else dict(
             TRAIN_CFG, use_pallas_reproj=True, pallas_reproj_bf16=False)
-        step = make_train_step(model, cfg, seed=0, steps_per_epoch=STEPS_PER_EPOCH)
+        # Eager (graph=False): the parent's formulations are compared op by op.
+        step = make_train_step(model, cfg, seed=0, steps_per_epoch=STEPS_PER_EPOCH,
+                               graph=False)
         models.set_kernels(model, True, True, True, stem_pool=True)
         return step
 
@@ -2191,7 +2266,8 @@ def child_repeat(torch, d: str) -> dict:
         finally:
             restore()
         busy = sum(e.time_range.elapsed_us() for e in prof.events()
-                   if e.device_type.name == "CUDA") / 1e3
+                   if not getattr(e, "is_user_annotation", False)
+                   and e.device_type.name == "CUDA") / 1e3
         nodes = {}
         for e in prof.key_averages():
             if e.key.startswith("autograd::engine::evaluate_function: "):
@@ -2317,7 +2393,8 @@ def _ddp_step_cfg(bn_groups: int):
 
 def _ddp_step(weights, bn_groups: int, on: bool, zero1: bool = False):
     """Phase 11(a)'s fp32 `TrainStep` from `weights`, with every kernel
-    (`on`) or with cuDNN and the plain versions."""
+    (`on`) or with cuDNN and the plain versions; eager (graph=False), as
+    the data-parallel step is, and as phase 14 compares it."""
     from jperceiver_tpu_torch.engine import make_train_step
     from jperceiver_tpu_torch.models import build_model, set_kernels
 
@@ -2326,7 +2403,7 @@ def _ddp_step(weights, bn_groups: int, on: bool, zero1: bool = False):
     model = build_model(cfg.model)
     model.load_state_dict(weights)
     step = make_train_step(model, cfg.model, steps_per_epoch=STEPS_PER_EPOCH, seed=0,
-                           optim_cfg=cfg, zero1=zero1)
+                           optim_cfg=cfg, zero1=zero1, graph=False)
     set_kernels(model, on, on, on, stem_pool=on)
     return step
 
@@ -2386,7 +2463,7 @@ def child_step(torch, d: str) -> dict:
     res["zero1_bit_for_bit"] = all(torch.equal(p, q) for p, q in zip(on.params, off.params))
     res["zero1_local_moment_elements"] = sum(
         v.numel() for st in on.optimizer.optim.state.values()
-        for k, v in st.items() if k in ("exp_avg", "exp_avg_sq")) // 2
+        for k, v in st.items() if k in ("mu", "nu")) // 2
     res["param_elements"] = sum(p.numel() for p in on.params)
     del off, on, grads
     torch.cuda.empty_cache()
@@ -2727,6 +2804,309 @@ def phase_tools(torch, card: str) -> dict:
     return res
 
 
+# ---- Phase 15: the entry points as CUDA graphs --------------------------------
+
+def _prof_counts(torch, prof) -> dict:
+    """Each hand kernel's launches in a profiler trace, by kernel name, with
+    the trace's device busy time, span and idle share."""
+    dev = _device_events(prof)
+    names = Counter(e.name for e in dev)
+    busy_ms = sum(e.time_range.elapsed_us() for e in dev) / 1e3
+    span_ms = ((max(e.time_range.end for e in dev) - min(e.time_range.start for e in dev)) / 1e3
+               if dev else 0.0)
+
+    def count(sub):
+        return sum(n for k, n in names.items() if sub in k)
+
+    return {"k1": count("reproj_fwd"), "k2": count("reproj_bwd"), "k3": count("conv3x3_bf16"),
+            "k4": count("wgrad_bf16"), "k5": count("maxpool5x5_nhwc"),
+            "k5_bwd": count("maxpool5x5_bwd_nhwc"), "stem_pool_bwd": count("maxpool3x3s2_bwd"),
+            "device_events": sum(names.values()), "device_busy_ms": busy_ms,
+            "device_span_ms": span_ms,
+            "idle_share": 1 - busy_ms / span_ms if span_ms else None}
+
+
+def _counters_as_profiled(counts: dict) -> dict:
+    """`launch_counts()` in the profiler's kernels (K3's forward and
+    data-grad are one kernel)."""
+    return {"k1": counts["reproj_fwd"], "k2": counts["reproj_bwd"],
+            "k3": counts["conv3x3"] + counts["conv3x3_dgrad"], "k4": counts["conv3x3_wgrad"],
+            "k5": counts["maxpool5x5"], "k5_bwd": counts["maxpool5x5_bwd"],
+            "stem_pool_bwd": counts["maxpool3x3s2_bwd"]}
+
+
+_KERNEL_KEYS = ("k1", "k2", "k3", "k4", "k5", "k5_bwd", "stem_pool_bwd")
+
+
+def _snapshot(step, metrics) -> dict:
+    return {"metrics": {k: v.clone() for k, v in metrics.items()},
+            "grads": [None if p.grad is None else p.grad.clone() for p in step.params],
+            "params": [p.detach().clone() for p in step.params]}
+
+
+def _final_state(step) -> dict:
+    return {"model": {k: v.clone() for k, v in step.model.state_dict().items()},
+            "optimizer": [{k: v.clone() for k, v in st.items()}
+                          for st in step.optimizer.state.values()],
+            "generator": step.generator.get_state(), "iteration": step.iteration}
+
+
+def _captured_vs_eager(torch, make_step, batches, what: str) -> dict:
+    """`make_step(graph)` twice from the same state: the eager step and the
+    captured one (its first step eager, its second captured and replayed,
+    the rest replays), over `batches`. Raises unless every step's metrics,
+    gradients and weights, and the final model (BatchNorm statistics
+    included), Adam state, generator and iteration are bit for bit equal.
+    Returns each run's peak memory and the capture's seconds, and the
+    captured step itself."""
+    runs = {}
+    for graph in (False, None):
+        step = make_step(graph)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        snaps, lrs = [], []
+        for b in batches:
+            m = step(b)
+            snaps.append(_snapshot(step, m))
+            lrs.append(float(step.optimizer.param_groups[0]["lr"]))
+        torch.cuda.synchronize()
+        runs[graph] = {"snaps": snaps, "final": _final_state(step), "lrs": lrs, "step": step,
+                       "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9}
+        if graph is False:
+            del step
+    eager, capt = runs[False], runs[None]
+    differing = [f"step {i + 1} {part}" for i, (a, b) in enumerate(zip(eager["snaps"],
+                                                                          capt["snaps"]))
+                 for part in a if not _same(torch, a[part], b[part])]
+    differing += [f"final {part}" for part in eager["final"]
+                  if not _same(torch, eager["final"][part], capt["final"][part])]
+    step = capt["step"]
+    res = {"steps": len(batches), "lrs": capt["lrs"], "eager_lrs": eager["lrs"],
+           "losses": [float(s["metrics"]["loss"]) for s in capt["snaps"]],
+           "grad_norms": [float(s["metrics"]["grad_norm"]) for s in capt["snaps"]],
+           "captures": step.graphs.captures, "capture_s": step.graphs.capture_s,
+           "peak_memory_gb": {"eager": eager["peak_memory_gb"],
+                              "captured": capt["peak_memory_gb"]},
+           "differing": differing}
+    log(f"graph {what}: {json.dumps(res)}")
+    if differing or step.graphs.captures != 1 or not step.graphed:
+        raise AssertionError(f"{what}: the captured step is not the eager step bit for bit: "
+                             f"{res}")
+    return res, step
+
+
+def phase_graph(torch, card: str, per_step: dict, n_k3_train: int, ft: dict,
+                kitti: dict) -> dict:
+    """Phase 15: the entry points as CUDA graphs (`engine/graphs.py`), each
+    against its eager twin (graph=False), at 1024^2, occ 256.
+      (a) phase 8's step (B = 1, road branch, Adam, clip 35), fp32 and bf16,
+          3 steps each from one state and generator (dropout and the
+          automask noise drawn), the LR milestone between steps 2 and 3;
+      (b) the fit's step (kitti_odom_1024: B = 3, remat, bf16), 3 steps;
+      (c) the eval step at B = 1 and streaming over 10 frames in chunks of
+          4 (4, 4, then 1), each call's outputs; `linalg.inv_ex` against
+          `linalg.inv` at the CGT's matrices;
+      all bit for bit;
+      (d) each hand kernel's launches in a profiled replay, by kernel name,
+          equal to the eager step's counters and to phase 8's and 9's tables,
+          and `launch_counts()` of the replay equal to the profiler's;
+      (e) a forward that calls `.item()`, captured, raises;
+      (f) times (not gated): train frames/s and eval latency captured and
+          eager in turns, streaming frames/s, the idle share and busy time
+          of a profiled replay, the captures' seconds and peak memory, and
+          phases 9 and 13 (captured fits) beside phase 9's eager twin."""
+    import copy
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from jperceiver_tpu_torch.data import synthetic_batch
+    from jperceiver_tpu_torch.engine import make_eval_step, make_streaming_fn, make_train_step
+    from jperceiver_tpu_torch.engine.trainer import batch_to
+    from jperceiver_tpu_torch.losses.cgt import _shifted_ground_from_img
+    from jperceiver_tpu_torch.models import build_model as build_preset_model
+    from jperceiver_tpu_torch.ops import cuda as kernels
+
+    t_phase = time.perf_counter()
+    res: dict = {"card": card}
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+
+    def profiled(step, batch) -> dict:
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        with profile(activities=acts) as prof:
+            step(batch)
+            torch.cuda.synchronize()
+        out = _prof_counts(torch, prof)
+        out["counters"] = _counters_as_profiled(kernels.launch_counts())
+        return out
+
+    # (a) Phase 8's step, the LR milestone at iteration 2 (epoch 1 of 2 steps).
+    cfg_a = dict(TRAIN_CFG, lr_config=dict(policy="step", warmup=None, step=[1]))
+    b1 = [batch_to(synthetic_batch(1, HW, HW, OCC, seed=s), "cuda") for s in range(3)]
+    for name, dtype, extra in (("fp32", torch.float32, dict(use_pallas_reproj=True,
+                                                             pallas_reproj_bf16=False)),
+                               ("bf16", torch.bfloat16, {})):
+        model = build_model(torch, dtype, "road")
+        init = copy.deepcopy(model.state_dict())
+
+        def make(graph, model=model, init=init, extra=extra):
+            model.load_state_dict(init)
+            return make_train_step(model, dict(cfg_a, **extra), seed=7, steps_per_epoch=2,
+                                   graph=graph)
+
+        res[f"train_{name}"], step = _captured_vs_eager(torch, make, b1, f"train {name}")
+        lrs = res[f"train_{name}"]["lrs"]
+        if not all(math.isclose(a, b, rel_tol=1e-6) for a, b in zip(lrs, (1e-4, 1e-4, 1e-5))):
+            raise AssertionError(f"train {name}: learning rates {lrs}, the milestone missed")
+        if name == "fp32":
+            del model, init, step
+            continue
+        # (d) A profiled replay against a profiled eager step of the same model.
+        eager = make_train_step(model, cfg_a, seed=8, steps_per_epoch=2, graph=False)
+        eager(b1[0])
+        prof_e, prof_c = profiled(eager, b1[0]), profiled(step, b1[0])
+        want = {"k1": 1, "k2": 1, "k3": 2 * n_k3_train, "k4": n_k3_train, "k5": 16,
+                "k5_bwd": 16, "stem_pool_bwd": 4}
+        res["train_profiled"] = {"eager": prof_e, "replay": prof_c, "expected": want}
+        # The replay's trace by kernel name, its counters and the eager
+        # step's counters all at phase 8's table. The eager step's trace is
+        # logged, not gated: one run's trace lost a K3 event (51 of the
+        # counters' 52) that its counters and every replay's trace hold.
+        for k in _KERNEL_KEYS:
+            if not prof_c[k] == want[k] == prof_c["counters"][k] == prof_e["counters"][k]:
+                raise AssertionError(f"train replay launches by name {k}: replay {prof_c}, "
+                                     f"eager {prof_e}, expected {want}")
+        # (f) Frames/s, captured and eager in turns (host clock, synchronized).
+        fps = {"captured": [], "eager": []}
+        for kind in ("captured", "eager", "eager", "captured"):
+            fn = step if kind == "captured" else eager
+            fn(b1[0])
+            for _ in range(4):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                fn(b1[0])
+                torch.cuda.synchronize()
+                fps[kind].append(time.perf_counter() - t0)
+        res["train_bf16_frames_per_s"] = {
+            k: {"median_ms": 1e3 * sorted(v)[len(v) // 2],
+                "median_frames_per_s": 1 / sorted(v)[len(v) // 2], "samples_s": v}
+            for k, v in fps.items()}
+        del model, init, step, eager
+    torch.cuda.empty_cache()
+
+    # (b) The fit's step: the preset's model, B = 3, remat, bf16.
+    cfg_b = _preset({"model.compute_dtype": "bfloat16"})
+    torch.manual_seed(0)
+    model = build_preset_model(cfg_b.model)
+    init = copy.deepcopy(model.state_dict())
+    b3 = [batch_to(synthetic_batch(FIT_B, HW, HW, OCC, seed=s), "cuda") for s in range(3)]
+
+    def make_fit(graph):
+        model.load_state_dict(init)
+        return make_train_step(model, cfg_b.model, steps_per_epoch=STEPS_PER_EPOCH, seed=0,
+                               optim_cfg=cfg_b, graph=graph)
+
+    res["fit"], step = _captured_vs_eager(torch, make_fit, b3, "fit step")
+    prof_c = profiled(step, b3[0])
+    want = {"k1": 1, "k2": 1, "k3": per_step["conv3x3"] + per_step["conv3x3_dgrad"],
+            "k4": per_step["conv3x3_wgrad"], "k5": per_step["maxpool5x5"],
+            "k5_bwd": per_step["maxpool5x5_bwd"], "stem_pool_bwd": per_step["maxpool3x3s2_bwd"]}
+    res["fit_profiled"] = {"replay": prof_c, "expected": want}
+    if any(prof_c[k] != want[k] or prof_c["counters"][k] != want[k] for k in _KERNEL_KEYS):
+        raise AssertionError(f"fit replay launches by name: {prof_c}, expected {want}")
+    del model, init, step, b3
+    torch.cuda.empty_cache()
+
+    # (c) The eval step at B = 1 (bf16, both branches, with pose).
+    model = build_model(torch, torch.bfloat16)
+    eager = make_eval_step(model, graph=False)
+    captured = make_eval_step(model)
+    g = torch.Generator(device="cuda").manual_seed(15)
+    frames = [torch.rand(1, 3, 3, HW, HW, device="cuda", generator=g) for _ in range(3)]
+    for i, x in enumerate(frames):
+        want, got = eager({"color_aug": x}), captured({"color_aug": x})
+        if not _same(torch, dict(got), dict(want)):
+            raise AssertionError(f"eval call {i + 1}: the captured outputs differ")
+    lat = {"captured": [], "eager": []}
+    batch = {"color_aug": frames[0]}
+    for kind in ("captured", "eager", "eager", "captured"):
+        fn = captured if kind == "captured" else eager
+        fn(batch)
+        for _ in range(25):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn(batch)
+            torch.cuda.synchronize()
+            lat[kind].append((time.perf_counter() - t0) * 1e3)
+    res["eval_ms"] = {k: {"n": len(v), "median": sorted(v)[len(v) // 2],
+                          "p90": sorted(v)[int(0.9 * len(v))], "min": min(v)}
+                      for k, v in lat.items()}
+    res["eval_captures"] = captured.graphs.captures
+    # Streaming: 10 frames, chunks of 4 (4, 4, then 1: two graphs).
+    vid = torch.rand(10, 3, HW, HW, device="cuda", generator=g)
+    s_eager, s_capt = make_streaming_fn(model, 4, graph=False), make_streaming_fn(model, 4)
+    s_times = {"captured": [], "eager": []}
+    for i in range(3):
+        for kind, fn in (("eager", s_eager), ("captured", s_capt)):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            ys = fn(vid)
+            torch.cuda.synchronize()
+            s_times[kind].append(time.perf_counter() - t0)
+            if kind == "eager":
+                want = ys
+        if not _same(torch, ys, want):
+            raise AssertionError(f"streaming run {i + 1}: the captured outputs differ")
+    if s_capt.graphs.captures != 2 or ys["global_pose"].shape[0] != 9:
+        raise AssertionError(f"streaming: {s_capt.graphs.captures} graphs, "
+                             f"{ys['global_pose'].shape[0]} poses")
+    res["stream"] = {"captures": s_capt.graphs.captures,
+                     "frames_per_s": {k: 9 / min(v) for k, v in s_times.items()},
+                     "seconds": s_times}
+    del model, eager, captured, s_eager, s_capt, ys, want
+    # inv_ex against inv at the CGT's matrices of phase 9's batch.
+    bt = batch_to(synthetic_batch(FIT_B, HW, HW, OCC, seed=0), "cuda")
+    hsg = _shifted_ground_from_img(bt["odometry_K"][:, :3, :3], bt["Tr_cam2_velo"], 1.73, OCC)
+    mats = {"H_sg_img": hsg, "M": torch.linalg.inv(hsg), "H_sg_img[:1]": hsg[:1]}
+    res["inv_ex_same_as_inv"] = {k: _same(torch, torch.linalg.inv_ex(m).inverse,
+                                          torch.linalg.inv(m)) for k, m in mats.items()}
+    if not all(res["inv_ex_same_as_inv"].values()):
+        raise AssertionError(f"inv_ex against inv: {res['inv_ex_same_as_inv']}")
+    torch.cuda.empty_cache()
+
+    # (f) The captured fits beside phase 9's eager twin.
+    res["fit_frames_per_s"] = {
+        "phase9_captured_steady": ft["steady_frames_per_s"],
+        "phase9_eager_twin_steady": ft["eager_twin"]["steady_frames_per_s"],
+        "phase9_captured_profiled_epoch": ft["profiled_epoch"],
+        "phase13_captured_steady": kitti["steady_frames_per_s"],
+        "phase13_profiled_epoch": kitti["profiled_epoch"],
+        "phase13_wait_per_step_s": kitti["steady_data_wait_per_step_s"],
+        "phase13_loader_sets_pace": kitti["loader_sets_pace"]}
+
+    # (e) No fallback: a forward that reads a value back, captured, raises.
+    class _Syncs(torch.nn.Module):
+        def forward(self, batch, train=False, with_pose=True):
+            x = batch["color_aug"] * 2
+            return {"x": x + 1 if x.sum().item() > 0 else x}
+
+    step = make_eval_step(_Syncs())
+    x = torch.rand(1, 1, 3, 8, 8, device="cuda")
+    step({"color_aug": x})  # the warm-up runs eagerly
+    try:
+        step({"color_aug": x})
+    except RuntimeError as exc:
+        res["no_fallback"] = str(exc)[:300]
+    else:
+        raise AssertionError("a captured .item() did not raise")
+    if "capture of the eval step failed" not in res["no_fallback"]:
+        raise AssertionError(f"the failed capture raised {res['no_fallback']}")
+    res["seconds"] = time.perf_counter() - t_phase
+    log(f"graph [{card}]: {json.dumps(res)}")
+    return res
+
+
 def main() -> int:
     import torch
 
@@ -2831,6 +3211,8 @@ def main() -> int:
         f"{ft['profiled_epoch']['idle_share']:.3f} / "
         f"{kitti['profiled_epoch']['idle_share']:.3f}, decode / load ms a sample "
         f"{kitti['decode_ms_per_sample']:.1f} / {kitti['load_ms_per_sample']:.1f}")
+    # Phase 15: the entry points as CUDA graphs against their eager twins.
+    graph = phase_graph(torch, card, per_step, n_k3_train, ft, kitti)
 
     def entry(kid, name, src, replaces, count, err, per, bound_by):
         lib = per["library_ms"]
@@ -2887,7 +3269,7 @@ def main() -> int:
         json.dump({"card": card, "build_s": build_s, "ptxas": ptxas, "k3_sites": n_k3,
                    "k3": k3, "k5": k5, "stem_pool": sp, "eval": ev, "stream": st, "reproj": rp,
                    "conv_bwd": cb, "train": tr, "fit": ft, "workflow": wf, "ddp": dp,
-                   "tools": tools, "kitti": kitti, "repeat": rep,
+                   "tools": tools, "kitti": kitti, "repeat": rep, "graph": graph,
                    "seconds": time.perf_counter() - t_start, "table": table},
                   f, indent=1)
     print(json.dumps(table), flush=True)

@@ -96,7 +96,10 @@ def restore_checkpoint(work_dir: str, step, epoch: int | None = None) -> int:
     place from the checkpoint of `epoch` (default: the newest) under
     `work_dir`; returns its epoch. Raises FileNotFoundError when there is
     none. Under a process group every rank restores from the same file (a
-    ZeRO-1 optimizer keeps its own share of the state)."""
+    ZeRO-1 optimizer keeps its own share of the state). The step's CUDA
+    graphs are dropped: the optimizer's restored state lives in new
+    tensors, so the next step at each shape runs eagerly and captures
+    again."""
     epoch = latest_epoch(work_dir) if epoch is None else epoch
     if epoch is None or not os.path.isfile(checkpoint_path(work_dir, epoch)):
         raise FileNotFoundError(f"no checkpoint under {work_dir}"
@@ -106,6 +109,8 @@ def restore_checkpoint(work_dir: str, step, epoch: int | None = None) -> int:
     step.optimizer.load_state_dict(ck["optimizer"])
     step.iteration = int(ck["iteration"])
     step.generator.set_state(ck["generator"].cpu())
+    if hasattr(step, "graphs"):
+        step.graphs.clear()
     return int(ck["epoch"])
 
 

@@ -76,16 +76,19 @@ class EvalHook:
     (`process_index`/`process_count`, the padded tail masked by `_valid`);
     the metrics' sums and counts and `n_eval_samples` are all-reduced (a
     tensor on the model's device), so every rank returns the summary of the
-    whole dataset, each sample counted once. `fps` stays the rank's own."""
+    whole dataset, each sample counted once. `fps` stays the rank's own.
+    `graph` is `make_eval_step`'s: a CUDA graph an input shape by default
+    on the card (the last, smaller batch gets its own)."""
 
     def __init__(self, model, val_loader: Iterable, cfg, with_depth: bool = True,
-                 with_layout: bool = True, max_batches: int | None = None, device=None):
+                 with_layout: bool = True, max_batches: int | None = None, device=None,
+                 graph: bool | None = None):
         self.loader = val_loader
         self.cfg = cfg
         self.with_depth = with_depth
         self.with_layout = with_layout
         self.max_batches = max_batches
-        self.eval_step = make_eval_step(model, cfg, device)
+        self.eval_step = make_eval_step(model, cfg, device, graph)
         self.device = next(model.parameters()).device
 
     def _sync(self) -> None:

@@ -9,7 +9,8 @@ from typing import Callable
 import torch
 
 from .._device import resolve_device
-from ..models.common import set_kernels
+from ..models.common import kernel_gates, set_kernels
+from .graphs import GraphCache, tensor_key, use_graphs
 
 
 def conv_gates_from_cfg(cfg=None) -> tuple[bool, bool]:
@@ -23,7 +24,8 @@ def conv_gates_from_cfg(cfg=None) -> tuple[bool, bool]:
     return shallow, deep
 
 
-def make_eval_step(model, cfg=None, device=None) -> Callable[[dict], dict]:
+def make_eval_step(model, cfg=None, device=None, graph: bool | None = None
+                   ) -> Callable[[dict], dict]:
     """Returns `step(batch) -> outputs`: the model in eval mode on `device`
     (CUDA by default), run under `torch.inference_mode()` with pose. Every
     call puts the model in eval mode first, so a step built once runs on the
@@ -32,15 +34,34 @@ def make_eval_step(model, cfg=None, device=None) -> Callable[[dict], dict]:
 
     batch["color_aug"] is (B, F, 3, H, W) in [0, 1], a tensor or a numpy
     array; outputs are float32 tensors on `device` (see `models/jperceiver`).
+
+    `graph` (JAX's `jit`, `engine/graphs.py`): None captures the forward as
+    a CUDA graph an input shape on CUDA outside a process group, False runs
+    it eagerly, True captures or raises. A captured step returns its
+    graph's static outputs, which the next call at that shape writes over.
+    The graph reads the model's parameters and statistics where they are,
+    so it sees every training step between calls.
     """
     dev = resolve_device(device)
     model = model.to(dev).eval()
     set_kernels(model, *conv_gates_from_cfg(cfg))
+    graphed = use_graphs(graph, dev, "make_eval_step")
+    gates = kernel_gates(model)
+
+    def forward(color_aug):
+        with torch.inference_mode():
+            return model({"color_aug": color_aug}, train=False, with_pose=True)
+
+    graphs = GraphCache(forward, "the eval step")
 
     def step(batch: dict) -> dict[str, torch.Tensor]:
         color_aug = torch.as_tensor(batch["color_aug"], dtype=torch.float32,
                                     device=dev)
-        with torch.inference_mode():
-            return model({"color_aug": color_aug}, train=False, with_pose=True)
+        if not graphed:
+            return forward(color_aug)
+        model.eval()  # the mode the eager forward leaves
+        inputs = {"color_aug": color_aug}
+        return graphs.run((tensor_key(inputs), gates()), inputs)
 
+    step.graphs = graphs
     return step

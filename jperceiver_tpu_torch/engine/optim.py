@@ -2,10 +2,10 @@
 
 The reference recipe: Adam (AdamW when weight decay is set, as optax's
 `adamw`), global-norm gradient clip (`clip_by_global_norm`), the step LR
-policy with an optional linear warmup, per iteration. `torch.optim.Adam`
-and `AdamW` compute optax's update (bias-corrected moments, eps outside the
-square root, decoupled decay), so they are used as they are; the clip and
-the schedule follow optax and mmcv exactly.
+policy with an optional linear warmup, per iteration. `Adam` and `SGD`
+compute optax's updates in optax's order with the learning rate and the
+step count on the device (`_DeviceLR`), so that the step can be captured as
+a CUDA graph; the clip and the schedule follow optax and mmcv exactly.
 
 Two knobs of `optimizer` follow the JAX package too: `mu_dtype` stores
 Adam's first moment in that dtype (`AdamLowPrecisionMu`, optax's
@@ -73,27 +73,84 @@ def param_labels(model: nn.Module) -> dict[str, str]:
     return labels
 
 
-class AdamLowPrecisionMu(torch.optim.Optimizer):
-    """optax `adam` / `adamw` with `mu_dtype`: the first moment is kept in
-    `mu_dtype`, the second in the parameter's dtype. Each step follows
-    optax's arithmetic in its order: mu = (1 - b1) g + b1 mu (the product
-    b1 mu in `mu_dtype`, with b1 rounded to it), nu = (1 - b2) g^2 + b2 nu, both bias-corrected,
-    u = mu_hat / (sqrt(nu_hat) + eps) (+ weight_decay * p), p += -lr u,
-    with mu rounded to `mu_dtype` only when it is stored."""
+class _DeviceLR(torch.optim.Optimizer):
+    """An optimizer whose learning rates and step counts live on the
+    parameters' device, so that a captured step (`engine/graphs.py`) reads
+    them anew at every replay: each group's `lr` is a 0-d tensor in its
+    parameters' dtype, which `set_lr` fills before each step, and the counts
+    are device tensors that the step itself advances. No step reads a value
+    back to the host.
 
-    def __init__(self, params, lr: float, mu_dtype: torch.dtype,
-                 weight_decay: float = 0.0, betas=(0.9, 0.999), eps: float = 1e-8):
-        super().__init__(params, dict(lr=lr, weight_decay=weight_decay))
-        self.mu_dtype, self.betas, self.eps = mu_dtype, betas, eps
+    `load_state_dict` takes the state dicts this optimizer writes and those
+    that the port's earlier optimizers wrote (`torch.optim.Adam` /
+    `AdamW` / `SGD`, a host-side count, a float `lr`): `_RENAMED` maps
+    their state keys to this optimizer's."""
+
+    _RENAMED: dict[str, str] = {}
+
+    def __init__(self, params, defaults: dict):
+        super().__init__(params, defaults)
+        for group in self.param_groups:
+            group["lr"] = self._lr_tensor(group, group["lr"])
+
+    @staticmethod
+    def _lr_tensor(group: dict, value):
+        if not group["params"]:  # a ZeRO-1 rank's empty share: nothing reads it
+            return value
+        p = group["params"][0]
+        return torch.full((), float(value), dtype=p.dtype, device=p.device)
+
+    def _state_tensor(self, p: torch.nn.Parameter, key: str, value: torch.Tensor):
+        return value.to(device=p.device, dtype=p.dtype)
 
     def load_state_dict(self, state_dict: dict) -> None:
-        """`Optimizer.load_state_dict` casts every floating state tensor to
-        its parameter's dtype; the first moment goes back to `mu_dtype`, or
-        a restored run would stop rounding it and leave the run it resumes."""
+        lrs = [g["lr"] for g in self.param_groups]
         super().load_state_dict(state_dict)
-        for st in self.state.values():
-            if "mu" in st:
-                st["mu"] = st["mu"].to(self.mu_dtype)
+        for group, lr in zip(self.param_groups, lrs):
+            saved = group["lr"]
+            group["lr"] = lr
+            if isinstance(lr, torch.Tensor):
+                lr.fill_(float(saved))
+            else:
+                group["lr"] = float(saved)
+        for p, st in self.state.items():
+            for old, new in self._RENAMED.items():
+                if old in st:
+                    st[new] = st.pop(old)
+            for k, v in list(st.items()):
+                if k == "step":
+                    st[k] = torch.full((), float(v), dtype=torch.float32, device=p.device)
+                elif isinstance(v, torch.Tensor):
+                    st[k] = self._state_tensor(p, k, v)
+
+
+class Adam(_DeviceLR):
+    """optax `adam` / `adamw` (`weight_decay` > 0), each step in optax's
+    arithmetic and order: mu = (1 - b1) g + b1 mu, nu = (1 - b2) g^2 + b2 nu,
+    both divided by their bias corrections 1 - b^count (on the device, in
+    the moments' dtype),
+    u = mu_hat / (sqrt(nu_hat) + eps) (+ weight_decay * p), p -= lr u.
+
+    `mu_dtype` (optax's) stores the first moment in that dtype: the product
+    b1 mu is taken in `mu_dtype` with b1 rounded to it, and mu is rounded to
+    it only when it is stored. The second moment keeps the parameter's
+    dtype. The state of a parameter is `step` (a 0-d fp32 count on its
+    device), `mu` and `nu`."""
+
+    _RENAMED = {"exp_avg": "mu", "exp_avg_sq": "nu"}
+
+    def __init__(self, params, lr: float, weight_decay: float = 0.0, betas=(0.9, 0.999),
+                 eps: float = 1e-8, mu_dtype: torch.dtype | None = None):
+        super().__init__(params, dict(lr=lr, weight_decay=weight_decay))
+        self.mu_dtype, self.betas, self.eps = mu_dtype, betas, eps
+        # b1 as a weak-typed scalar of mu_dtype in JAX: 0.8984375 in bf16.
+        self._b1_mu = betas[0] if mu_dtype is None else float(
+            torch.tensor(betas[0], dtype=mu_dtype))
+
+    def _state_tensor(self, p, key, value):
+        if key == "mu" and self.mu_dtype is not None:
+            return value.to(device=p.device, dtype=self.mu_dtype)
+        return super()._state_tensor(p, key, value)
 
     @torch.no_grad()
     def step(self, closure=None):
@@ -105,34 +162,67 @@ class AdamLowPrecisionMu(torch.optim.Optimizer):
             states = [self.state[p] for p in ps]
             for p, st in zip(ps, states):
                 if not st:
-                    st["step"] = 0
-                    st["mu"] = torch.zeros_like(p, dtype=self.mu_dtype,
+                    st["step"] = torch.zeros((), dtype=torch.float32, device=p.device)
+                    st["mu"] = torch.zeros_like(p, dtype=self.mu_dtype or p.dtype,
                                                 memory_format=torch.preserve_format)
                     st["nu"] = torch.zeros_like(p, memory_format=torch.preserve_format)
-                st["step"] += 1
+            counts = [st["step"] for st in states]
+            torch._foreach_add_(counts, 1.0)
             grads = [p.grad for p in ps]
             mu = torch._foreach_mul(grads, 1 - b1)
-            # b1 * mu is a product in mu_dtype, b1 rounded to it first (a
-            # weak-typed scalar in JAX): 0.8984375 in bf16.
-            b1_mu = float(torch.tensor(b1, dtype=self.mu_dtype))
             torch._foreach_add_(mu, [m.to(g.dtype) for m, g in zip(
-                torch._foreach_mul([st["mu"] for st in states], b1_mu), grads)])
+                torch._foreach_mul([st["mu"] for st in states], self._b1_mu), grads)])
             nus = [st["nu"] for st in states]
             nu = torch._foreach_mul(torch._foreach_mul(grads, grads), 1 - b2)
             torch._foreach_add_(nu, torch._foreach_mul(nus, b2))
-            count = states[0]["step"]
-            bc1 = 1.0 - torch.tensor(b1, dtype=torch.float32) ** count
-            bc2 = 1.0 - torch.tensor(b2, dtype=torch.float32) ** count
-            den = torch._foreach_sqrt(torch._foreach_div(nu, bc2.item()))
+            count = counts[0].to(mu[0].dtype)
+            bc1, bc2 = 1.0 - torch.pow(b1, count), 1.0 - torch.pow(b2, count)
+            den = torch._foreach_sqrt(torch._foreach_div(nu, bc2))
             torch._foreach_add_(den, self.eps)
-            upd = torch._foreach_div(torch._foreach_div(mu, bc1.item()), den)
+            upd = torch._foreach_div(torch._foreach_div(mu, bc1), den)
             if group["weight_decay"]:
                 torch._foreach_add_(upd, torch._foreach_mul(ps, group["weight_decay"]))
-            torch._foreach_mul_(upd, -group["lr"])
-            torch._foreach_add_(ps, upd)
-            for st, m, n in zip(states, mu, nu):
-                st["mu"].copy_(m)
-                st["nu"].copy_(n)
+            torch._foreach_mul_(upd, group["lr"])
+            torch._foreach_sub_(ps, upd)
+            torch._foreach_copy_([st["mu"] for st in states], mu)
+            torch._foreach_copy_(nus, nu)
+        return None
+
+
+class AdamLowPrecisionMu(Adam):
+    """`Adam` with its first moment stored in `mu_dtype` (optax's
+    `mu_dtype`), the optimizer of `optimizer.mu_dtype`."""
+
+    def __init__(self, params, lr: float, mu_dtype: torch.dtype, weight_decay: float = 0.0,
+                 betas=(0.9, 0.999), eps: float = 1e-8):
+        super().__init__(params, lr, weight_decay, betas, eps, mu_dtype=mu_dtype)
+
+
+class SGD(_DeviceLR):
+    """optax `sgd` with `momentum` (no Nesterov): t = g + momentum t,
+    p -= lr t; without momentum p -= lr g. The trace is the state's
+    `momentum_buffer`."""
+
+    def __init__(self, params, lr: float, momentum: float = 0.0):
+        super().__init__(params, dict(lr=lr))
+        self.momentum = momentum
+
+    @torch.no_grad()
+    def step(self, closure=None):
+        for group in self.param_groups:
+            ps = [p for p in group["params"] if p.grad is not None]
+            if not ps:
+                continue
+            trace = [p.grad for p in ps]
+            if self.momentum:
+                for p in ps:
+                    if "momentum_buffer" not in self.state[p]:
+                        self.state[p]["momentum_buffer"] = torch.zeros_like(
+                            p, memory_format=torch.preserve_format)
+                trace = [self.state[p]["momentum_buffer"] for p in ps]
+                torch._foreach_mul_(trace, self.momentum)
+                torch._foreach_add_(trace, [p.grad for p in ps])
+            torch._foreach_sub_(ps, torch._foreach_mul(trace, group["lr"]))
         return None
 
 
@@ -175,12 +265,10 @@ def build_optimizer(cfg, params: Iterable[torch.nn.Parameter],
             cls, kw = AdamLowPrecisionMu, dict(
                 lr=sched(0), weight_decay=wd,
                 mu_dtype=getattr(torch, mu_dtype) if isinstance(mu_dtype, str) else mu_dtype)
-        elif wd:
-            cls, kw = torch.optim.AdamW, dict(lr=sched(0), weight_decay=wd, eps=1e-8)
         else:
-            cls, kw = torch.optim.Adam, dict(lr=sched(0), eps=1e-8)
+            cls, kw = Adam, dict(lr=sched(0), weight_decay=wd, eps=1e-8)
     elif opt_type == "sgd":
-        cls, kw = torch.optim.SGD, dict(lr=sched(0), momentum=float(opt_cfg.get("momentum", 0.9)))
+        cls, kw = SGD, dict(lr=sched(0), momentum=float(opt_cfg.get("momentum", 0.9)))
     else:
         raise ValueError(f"unsupported optimizer: {opt_type}")
     if zero1:
@@ -203,9 +291,15 @@ def build_optimizer(cfg, params: Iterable[torch.nn.Parameter],
 
 def set_lr(opt: torch.optim.Optimizer, sched: Callable[[int], float], it: int) -> None:
     """Each group's lr at iteration `it`: the schedule's times the group's
-    `lr_mult`."""
+    `lr_mult`, filled into the group's lr tensor on the device (a fill, no
+    copy from the host: a captured step reads it at its next replay), or
+    set as a float where a group holds one."""
     for group in opt.param_groups:
-        group["lr"] = sched(it) * group.get("lr_mult", 1.0)
+        lr = sched(it) * group.get("lr_mult", 1.0)
+        if isinstance(group["lr"], torch.Tensor):
+            group["lr"].fill_(lr)
+        else:
+            group["lr"] = lr
 
 
 def global_norm(grads: list[torch.Tensor]) -> torch.Tensor:

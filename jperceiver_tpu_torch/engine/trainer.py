@@ -15,6 +15,12 @@ parallel, as the JAX step is over its mesh: the model runs inside
 BatchNorm, the two batch-wide loss ratios and the random draws are those of
 the global batch (`parallel/dist.py`), so a W-rank step at B a rank is the
 one-process step at W * B.
+
+On CUDA outside a process group the step is captured as a CUDA graph
+(`graph`, `engine/graphs.py`), as the JAX package jits its step: forward,
+CGT label, losses, backward, clip and the optimizer update are one graph,
+replayed once a call, the parameters, Adam's moments and the BatchNorm
+statistics updated in place (JAX's `donate_argnums`).
 """
 
 from __future__ import annotations
@@ -31,7 +37,8 @@ import torch
 from .. import parallel as dist
 from .._device import resolve_device
 from ..losses.multitask import compute_losses, total_loss
-from ..models.common import set_bn_groups, set_kernels
+from ..models.common import kernel_gates, set_bn_groups, set_kernels
+from .graphs import GraphCache, tensor_key, use_graphs
 from .infer import conv_gates_from_cfg
 from .optim import build_optimizer, clip_by_global_norm_, global_norm, param_labels, set_lr
 
@@ -85,10 +92,19 @@ class TrainStep:
     reads the gradients DDP has averaged (the global norm), and the losses
     returned are this rank's shares (`reduce_metrics` gives their mean,
     the global batch's values).
+
+    With `graphed` the step is a CUDA graph a batch shape (`GraphCache`):
+    the metrics it returns are the graph's static outputs, which the next
+    step at that shape writes over (read or clone them before), and the
+    parameters' `.grad` are the graph's gradients. The first step at a
+    shape runs eagerly, the second captures; the generator is registered
+    with each graph, so that every replay draws what the eager step would.
+    A restore drops the graphs (`graphs.clear()`): it replaces the
+    optimizer's state tensors that they read (`engine/checkpoint.py`).
     """
 
     def __init__(self, model, cfg, device, steps_per_epoch: int, seed: int, optim_cfg=None,
-                 zero1: bool = False):
+                 zero1: bool = False, graph: bool | None = None):
         self.device = device
         self.model = model.to(device).train()
         self.cfg = cfg
@@ -120,10 +136,30 @@ class TrainStep:
             labels=[labels[n] for n, _ in named], zero1=zero1)
         self.generator = torch.Generator(device=device).manual_seed(seed)
         self.iteration = 0
+        self.graphed = use_graphs(graph, device, "make_train_step")
+        self.graphs = GraphCache(self._run, "the training step", (self.generator,))
+        self._gates = kernel_gates(model)
 
     def __call__(self, batch: dict, noise: torch.Tensor | None = None) -> dict[str, torch.Tensor]:
         batch = batch_to(batch, self.device)
+        # The learning rate on the device, filled before the step (or its
+        # replay) reads it.
         set_lr(self.optimizer, self.schedule, self.iteration)
+        if self.graphed:
+            self.model.train()  # the mode the eager forward leaves
+            inputs = dict(batch, noise=noise)
+            metrics, grads = self.graphs.run((tensor_key(inputs), self._gates()), inputs)
+            for p, g in zip(self.params, grads):
+                p.grad = g
+        else:
+            metrics, _ = self._run(noise, **batch)
+        self.iteration += 1
+        return metrics
+
+    def _run(self, noise=None, **batch):
+        """The step's device work, what a graph holds: the forward, the
+        losses, the backward, the clip and the update. Returns the metrics
+        and each parameter's gradient."""
         self.optimizer.zero_grad(set_to_none=True)
         with deterministic_cudnn():
             outputs = self.ddp(batch, train=True, generator=self.generator)
@@ -136,11 +172,10 @@ class TrainStep:
         if self.clip is not None:
             clip_by_global_norm_(grads, norm, self.clip)
         self.optimizer.step()
-        self.iteration += 1
         metrics = {k: v.detach() for k, v in losses.items()}
         metrics["loss"] = loss.detach()
         metrics["grad_norm"] = norm
-        return metrics
+        return metrics, [p.grad for p in self.params]
 
     @staticmethod
     def reduce_metrics(metrics: dict[str, torch.Tensor]) -> dict[str, torch.Tensor]:
@@ -153,7 +188,8 @@ class TrainStep:
 
 
 def make_train_step(model, cfg, device=None, *, steps_per_epoch: int,
-                    seed: int = 0, optim_cfg=None, zero1: bool = False) -> TrainStep:
+                    seed: int = 0, optim_cfg=None, zero1: bool = False,
+                    graph: bool | None = None) -> TrainStep:
     """Returns the `TrainStep` of `model` on `device` (CUDA by default;
     raises when there is no card unless the caller asks for the CPU):
     `step(batch, noise=None) -> metrics`. The losses read `cfg`, the model
@@ -174,9 +210,14 @@ def make_train_step(model, cfg, device=None, *, steps_per_epoch: int,
     Under a process group the step is data parallel (DDP, every rank
     seeded alike); `zero1` shards Adam's moments over the ranks
     (`build_optimizer`).
+
+    `graph` (the counterpart of JAX's `jit`, `engine/graphs.py`): None
+    captures the step as a CUDA graph on CUDA outside a process group,
+    False runs it eagerly, True captures or raises. A captured step returns
+    its graph's static metrics, which the next step writes over.
     """
     return TrainStep(model, cfg, resolve_device(device), steps_per_epoch, seed, optim_cfg,
-                     zero1)
+                     zero1, graph)
 
 
 class Trainer:
@@ -204,12 +245,19 @@ class Trainer:
     `data_wait_s` holds, per epoch, the host seconds the loop waited for
     each batch from the prefetch queue (the last entry: the wait for its
     end).
+
+    `graph` is `make_train_step`'s: on CUDA the step is a CUDA graph by
+    default. The prefetch thread copies each batch on its side stream; the
+    step waits for that copy's event, then copies the batch into the
+    graph's static inputs on its own stream. The loop reads a step's
+    metrics before the next step writes over them.
     """
 
     def __init__(self, model, cfg, train_loader: Iterable, steps_per_epoch: int,
                  device=None, eval_hook: Callable | None = None,
                  checkpoint_fn: Callable | None = None, log_fn: Callable | None = None,
-                 log_interval: int = 50, profile_dir: str | None = None, seed: int = 0):
+                 log_interval: int = 50, profile_dir: str | None = None, seed: int = 0,
+                 graph: bool | None = None):
         if "model" not in cfg:
             raise ValueError("Trainer takes the run's config (with `model`, `optimizer`, "
                              "`optimizer_config`, `lr_config`), not the model's")
@@ -225,7 +273,7 @@ class Trainer:
         self.profile_dir = profile_dir
         self.train_step = make_train_step(model, cfg["model"], self.device,
                                           steps_per_epoch=steps_per_epoch, seed=seed,
-                                          optim_cfg=cfg)
+                                          optim_cfg=cfg, graph=graph)
         self.data_wait_s: list[list[float]] = []
 
     def _to_device(self, batch: dict, stream):

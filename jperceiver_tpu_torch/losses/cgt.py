@@ -15,6 +15,7 @@ from __future__ import annotations
 
 import torch
 
+from .._device import device_constant
 from ..ops.geometry import bmv, ground_homography, se3_matrix
 from ..ops.sampling import warp_perspective
 
@@ -71,12 +72,12 @@ def _shifted_ground_from_img(K3, Tr_cam2_velo, camera_height: float,
     dev = K3.device
     ego_T_ground = se3_matrix(
         torch.eye(3, device=dev).expand(b, 3, 3),
-        torch.tensor([0.0, 0.0, -camera_height], device=dev).expand(b, 3))
+        device_constant([0.0, 0.0, -camera_height], torch.float32, dev).expand(b, 3))
     cam_T_ground = bmv(Tr_cam2_velo, ego_T_ground)
-    ground_H_img = torch.linalg.inv(ground_homography(cam_T_ground, K3.float()))
+    ground_H_img = torch.linalg.inv_ex(ground_homography(cam_T_ground, K3.float())).inverse
     rescale = occ_map_size / 40.0
-    shift = torch.tensor([[rescale, 0.0, 0.0], [0.0, rescale, float(occ_map_size // 2)],
-                          [0.0, 0.0, 1.0]], device=dev)
+    shift = device_constant([[rescale, 0.0, 0.0], [0.0, rescale, float(occ_map_size // 2)],
+                             [0.0, 0.0, 1.0]], torch.float32, dev)
     return bmv(shift.expand(b, 3, 3), ground_H_img)
 
 
@@ -84,10 +85,9 @@ def _front_quad_mask(H_sg_img: torch.Tensor, occ_map_size: int, h: int,
                      w: int) -> torch.Tensor:
     """The assumption quad projected into the front view -> (B, H, W); from
     batch element 0, as the reference rasterizes it."""
-    pts = torch.tensor(assumption_quad_points(occ_map_size), dtype=torch.float32,
-                       device=H_sg_img.device)
+    pts = device_constant(assumption_quad_points(occ_map_size), torch.float32, H_sg_img.device)
     homo = torch.cat([pts, torch.ones_like(pts[:, :1])], 1)  # (4, 3)
-    q = bmv(torch.linalg.inv(H_sg_img[:1]), homo.T[None])[0].T  # (4, 3)
+    q = bmv(torch.linalg.inv_ex(H_sg_img[:1]).inverse, homo.T[None])[0].T  # (4, 3)
     img_pts = torch.round(q[:, :2] / (q[:, 2:3] + 1e-8))
     return _quad_mask(img_pts, h, w).expand(H_sg_img.shape[0], h, w)
 
@@ -116,7 +116,9 @@ def cgt_scale_label(bev_layout: torch.Tensor | None, K3: torch.Tensor,
 
     ramp = _bev_to_warp_frame(_distance_ramp(b, s, offset, K3.device))
     H_sg_img = _shifted_ground_from_img(K3, Tr_cam2_velo, camera_height, s)
-    M = torch.linalg.inv(H_sg_img)  # the reference passes inv(H) to the warper
+    # The reference passes inv(H) to the warper. `inv_ex` is `inv` without
+    # the check of its status on the host, which waits for the device.
+    M = torch.linalg.inv_ex(H_sg_img).inverse
     dist_front = warp_perspective(ramp, M, (h, w), padding_mode="zeros")
     if kind == "dynamic":
         return dist_front * _front_quad_mask(H_sg_img, s, h, w)[:, None]

@@ -20,6 +20,7 @@ from typing import Any, Mapping
 import torch
 
 from .. import parallel as dist
+from .._device import device_constant
 from ..ops.cuda import reproj_min, reproj_min_automask
 from ..ops.geometry import backproject, disp_to_depth, project
 from ..ops.photometric import reprojection_loss
@@ -114,7 +115,7 @@ def compute_losses(outputs: Mapping[str, torch.Tensor],
                          float(cfg.get("loss_weight", 1.0)),
                          float(cfg.get("loss2_weight", 1.0))))
     for sfx, kind, cw, lw, l2w in branches:
-        weight = torch.tensor([1.0, cw], device=dev)
+        weight = device_constant([1.0, cw], torch.float32, dev)
         labels = batch[f"bev_{kind}"].long()
         sdf = batch.get(f"bev_{kind}_sdf")
         for key in ("topview", "transform_topview"):

@@ -148,8 +148,12 @@ class JPerceiver(nn.Module):
         if name not in self.remat_trunks or not (self.training and torch.is_grad_enabled()):
             return fn(*args)
         module = getattr(self, name)
-        return checkpoint(fn, *args, use_reentrant=False, context_fn=lambda: (
-            contextlib.nullcontext(), frozen_running_stats(module)))
+        # The trunks draw nothing at random (the decoder's dropout is drawn
+        # before its checkpoint), so no RNG state is kept for the recompute:
+        # reading it would fail under a CUDA graph capture.
+        return checkpoint(fn, *args, use_reentrant=False, preserve_rng_state=False,
+                          context_fn=lambda: (contextlib.nullcontext(),
+                                              frozen_running_stats(module)))
 
     def _layout_branch(self, enc_feat, depth_feat, suffix):
         cvp = getattr(self, f"CycledViewProjection{suffix}")

@@ -83,7 +83,8 @@ class _GatherRows(torch.autograd.Function):
     def backward(ctx, g):
         (idx,) = ctx.saved_tensors
         acc = torch.promote_types(g.dtype, torch.float32)
-        onehot = F.one_hot(idx, ctx.n).to(acc)  # (B, M, N)
+        # (B, M, N); a comparison, as `F.one_hot` reads idx's range back to the host.
+        onehot = (idx[..., None] == torch.arange(ctx.n, device=idx.device)).to(acc)
         return torch.bmm(onehot.transpose(1, 2), g.to(acc)).to(ctx.dtype), None
 
 

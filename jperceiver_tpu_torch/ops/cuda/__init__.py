@@ -9,7 +9,15 @@ kernel had one: K3 forward and data-grad with K4 as the weight-grad
 K5 with its backward kernel (`maxpool5x5`). The stem pool
 (`maxpool3x3s2`) keeps `F.max_pool2d` as its forward; its backward is a
 kernel too.
+
+`LAUNCHES` of each wrapper module counts the launches its wrappers make.
+A wrapper called inside a CUDA graph capture counts a launch the capture
+only records; `GraphLaunches` takes those counts back and adds them at
+each replay, which calls no wrapper, so that `launch_counts()` stays the
+number of kernels that ran.
 """
+
+import contextlib
 
 from . import conv3x3, maxpool, reproj
 from .conv3x3 import conv3x3_fwd, conv3x3_plain, conv3x3_wgrad, conv3x3_wgrad_plain
@@ -31,9 +39,40 @@ def reset_launch_counts() -> None:
             counts[k] = 0
 
 
+def _add(delta: dict[str, int], times: int) -> None:
+    for counts in _COUNTS:
+        for k in counts.keys() & delta.keys():
+            counts[k] += times * delta[k]
+
+
+class GraphLaunches:
+    """The launches of the hand kernels that one captured graph holds.
+
+    `capture()` wraps the capture: what the wrappers count inside it is
+    taken back (a capture runs no kernel) and kept as `per_replay`;
+    `replayed()` adds `per_replay` once a replay."""
+
+    def __init__(self):
+        self.per_replay: dict[str, int] = {}
+
+    @contextlib.contextmanager
+    def capture(self):
+        before = launch_counts()
+        try:
+            yield self
+        finally:
+            after = launch_counts()
+            self.per_replay = {k: n - before[k] for k, n in after.items() if n != before[k]}
+            _add(self.per_replay, -1)
+
+    def replayed(self) -> None:
+        _add(self.per_replay, 1)
+
+
 __all__ = ["conv3x3_fwd", "conv3x3_plain", "conv3x3_wgrad",
            "conv3x3_wgrad_plain", "maxpool3x3s2", "maxpool3x3s2_bwd",
            "maxpool3x3s2_bwd_plain", "maxpool5x5",
            "maxpool5x5_bwd", "maxpool5x5_bwd_plain", "maxpool5x5_fwd",
            "maxpool5x5_plain", "reproj_min",
-           "reproj_min_automask", "reproj_min_plain", "launch_counts", "reset_launch_counts"]
+           "reproj_min_automask", "reproj_min_plain", "GraphLaunches", "launch_counts",
+           "reset_launch_counts"]

@@ -12,6 +12,8 @@ from __future__ import annotations
 
 import torch
 
+from .._device import device_constant
+
 
 def at_least_f32(t: torch.Tensor) -> torch.Tensor:
     """t in fp32, or in float64 when it is float64."""
@@ -67,7 +69,7 @@ def rot_from_axisangle(vec: torch.Tensor) -> torch.Tensor:
     ).reshape(vec.shape[0], 3, 3)
     out = torch.zeros((vec.shape[0], 4, 4), dtype=vec.dtype, device=vec.device)
     out[:, :3, :3] = rot
-    out[:, 3, 3] = 1.0
+    out[:, 3, 3].fill_(1.0)
     return out
 
 
@@ -149,5 +151,5 @@ def project(points: torch.Tensor, K: torch.Tensor, T: torch.Tensor,
     cam = bmv(P, points)
     xy = cam[:, :2] / (cam[:, 2:3] + eps)
     xy = xy.reshape(b, 2, height, width).permute(0, 2, 3, 1)
-    scale = xy.new_tensor([width - 1, height - 1])
+    scale = device_constant([width - 1, height - 1], xy.dtype, xy.device)
     return (xy / scale - 0.5) * 2.0

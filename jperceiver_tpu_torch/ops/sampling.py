@@ -100,7 +100,7 @@ def warp_perspective(src: torch.Tensor, M: torch.Tensor, dsize: tuple[int, int],
 
     out_h, out_w = dsize
     b, _, h, w = src.shape
-    m_inv = torch.linalg.inv(M.float())
+    m_inv = torch.linalg.inv_ex(M.float()).inverse  # no status check on the host
     ys, xs = torch.meshgrid(torch.arange(out_h, dtype=torch.float32, device=src.device),
                             torch.arange(out_w, dtype=torch.float32, device=src.device),
                             indexing="ij")

@@ -11,14 +11,15 @@ are per sample and class, summed over the spatial dims.
 from __future__ import annotations
 
 import torch
-import torch.nn.functional as F
 
 from ..parallel import global_sum, world_size
 
 
 def _onehot(labels: torch.Tensor, num_classes: int, dtype) -> torch.Tensor:
-    """(B, H, W) -> (B, C, H, W) one-hot in `dtype`."""
-    return F.one_hot(labels.long(), num_classes).permute(0, 3, 1, 2).to(dtype)
+    """(B, H, W) -> (B, C, H, W) one-hot in `dtype`. A comparison, not
+    `F.one_hot`, which reads the labels' range back to the host."""
+    classes = torch.arange(num_classes, device=labels.device)
+    return (labels.long()[..., None] == classes).permute(0, 3, 1, 2).to(dtype)
 
 
 def _tp_fp_fn(probs: torch.Tensor, labels: torch.Tensor):
@@ -119,7 +120,7 @@ def _edt_sq(mask: torch.Tensor, big: float = 1e12) -> torch.Tensor:
     cols = torch.arange(w, dtype=torch.float32, device=mask.device)
     dj = (cols[None, :] - cols[:, None]) ** 2
     bg = ~mask.bool()
-    big_t = torch.tensor(big, dtype=torch.float32, device=mask.device)
+    big_t = torch.full((), big, dtype=torch.float32, device=mask.device)
     d1 = torch.where(bg[..., :, None], dj[None, None], big_t).amin(-2)
     rows = torch.arange(h, dtype=torch.float32, device=mask.device)
     di = (rows[None, :] - rows[:, None]) ** 2

@@ -85,7 +85,11 @@ def main(argv=None) -> dict:
         if device.type == "cuda":
             torch.cuda.synchronize(device)
 
-    float(step(batch)["loss"])  # warm-up: kernel builds, cuDNN plans, allocator
+    # Warm-up: the first step runs eagerly (kernel builds, cuDNN plans, the
+    # allocator), the second captures the step's CUDA graph on the card; the
+    # traced steps are replays.
+    for _ in range(2):
+        float(step(batch)["loss"])
     acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if device.type == "cuda" else [])
     with profile(activities=acts) as prof:
         sync()

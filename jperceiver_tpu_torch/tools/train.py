@@ -10,6 +10,9 @@ then trains with `fit_resilient`. `--resume_from <work dir>` restores the
 newest checkpoint there (model, optimizer, iteration, generator) and goes
 on from its epoch; `--load_from` / `--finetune` load weights only, the
 second where names and shapes match. Runs on the card unless `--device cpu`.
+On the card the training step and the eval hook's forward are CUDA graphs
+(`engine/graphs.py`) unless `--graph off`; `--graph on` raises where a step
+cannot be captured (under a process group, on the CPU).
 
 Data parallel (the JAX CLI's `--multihost`): one process per card, started
 by torchrun, with `--launcher pytorch`:
@@ -47,6 +50,9 @@ def parse_args(argv=None):
                    help="pytorch: join the process group torchrun's environment describes")
     p.add_argument("--dist_backend", default=None,
                    help="nccl or gloo (default: nccl on the card, gloo on the CPU)")
+    p.add_argument("--graph", choices=("auto", "on", "off"), default="auto",
+                   help="CUDA graphs of the step and the eval forward: auto captures on "
+                        "the card outside a process group")
     return p.parse_args(argv)
 
 
@@ -74,6 +80,7 @@ def main(argv=None):
         if getattr(args, k) is not None:
             cfg[k] = getattr(args, k)
     seed = args.seed or 0
+    graph = {"auto": None, "on": True, "off": False}[args.graph]
     if args.seed is not None:
         set_random_seed(args.seed)
     logger = get_root_logger()
@@ -107,7 +114,7 @@ def main(argv=None):
         # Evaluation sees every sample: the tail is padded, not dropped.
         val_loader = DataLoader(val_ds, batch_size=1, shuffle=False, num_workers=workers,
                                 drop_last=False, **shard)
-        eval_hook = EvalHook(model, val_loader, model_cfg, device=device)
+        eval_hook = EvalHook(model, val_loader, model_cfg, device=device, graph=graph)
 
     interval = int(cfg.get("checkpoint_config", {}).get("interval", 1))
 
@@ -119,7 +126,7 @@ def main(argv=None):
                       eval_hook=eval_hook, checkpoint_fn=checkpoint_fn,
                       log_fn=JsonLogger(args.work_dir),
                       log_interval=int(cfg.get("log_config", {}).get("interval", 50)),
-                      seed=seed)
+                      seed=seed, graph=graph)
     start_epoch = 0
     if cfg.get("resume_from"):
         start_epoch = restore_checkpoint(cfg.resume_from, trainer.train_step)

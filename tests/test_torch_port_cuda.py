@@ -541,3 +541,104 @@ def test_fp32_train_step_repeats_bit_for_bit(cuda):
         runs.append([p.grad.clone() for p in step.params] + [p.detach().clone()
                                                               for p in step.params])
     assert all(torch.equal(a, b) for a, b in zip(*runs))
+
+
+def _graph_model(h=128, **kw):
+    from jperceiver_tpu_torch.models import JPerceiver
+
+    torch.manual_seed(0)
+    return JPerceiver(height=h, width=h, occ_map_size=h // 4, **kw)
+
+
+_GRAPH_CFG = dict(type="static", split="odometry", frame_ids=[0, -1, 1], scales=[0, 1, 2, 3],
+                  height=128, width=128, occ_map_size=32, num_class=2, min_depth=0.1,
+                  max_depth=100.0, automask=True, disp_norm=True, loss_type="iou", loss_sum=3,
+                  loss_weight=20, loss2_weight=20, cgt_label_hw=(375, 1242),
+                  optimizer=dict(type="Adam", lr=1e-4, weight_decay=0),
+                  optimizer_config=dict(grad_clip=dict(max_norm=35, norm_type=2)),
+                  lr_config=dict(policy="step", step=[1]))
+
+
+def _bits(ts):
+    return [t.detach().clone() for t in ts]
+
+
+def test_captured_train_step_matches_eager_bit_for_bit(cuda):
+    """Three steps of the 128^2 step (road branch, dropout and the automask
+    noise drawn from the step's generator), the LR milestone between steps
+    2 and 3: the captured step (eager warm-up, capture, replay) against the
+    eager one from the same state, every metric, gradient and weight after
+    each step, and the optimizer state, BatchNorm statistics and generator
+    after the last, bit for bit; each replay's launches are the eager
+    step's."""
+    import copy
+
+    from jperceiver_tpu_torch.data import synthetic_batch
+    from jperceiver_tpu_torch.engine import make_train_step
+
+    model = _graph_model(branches="road")
+    init = copy.deepcopy(model.state_dict())
+    batches = [synthetic_batch(1, 128, 128, 32, seed=s) for s in range(3)]
+    runs = {}
+    for graph in (False, None):
+        model.load_state_dict(init)
+        step = make_train_step(model, _GRAPH_CFG, cuda, steps_per_epoch=2, seed=3, graph=graph)
+        per_step, counts = [], []
+        for b in batches:
+            reset_launch_counts()
+            m = step(b)
+            torch.cuda.synchronize()
+            counts.append(launch_counts())
+            per_step.append(_bits([m[k] for k in sorted(m)] + [p.grad for p in step.params]
+                                  + list(step.params)))
+        assert step.graphed == (graph is None)
+        assert step.graphs.captures == (1 if graph is None else 0)
+        last = _bits(list(model.state_dict().values())
+                     + [v for st in step.optimizer.state.values() for v in st.values()])
+        runs[graph] = (per_step, counts, last, step.generator.get_state())
+    (eager, e_counts, e_last, e_gen), (capt, c_counts, c_last, c_gen) = runs[False], runs[None]
+    for i, (a, b) in enumerate(zip(eager, capt)):
+        assert all(torch.equal(x, y) for x, y in zip(a, b, strict=True)), f"step {i + 1}"
+    assert all(torch.equal(x, y) for x, y in zip(e_last, c_last, strict=True))
+    assert torch.equal(e_gen, c_gen)
+    assert c_counts == e_counts
+    assert e_counts[0]["reproj_fwd"] == e_counts[0]["reproj_bwd"] == 1
+
+
+@pytest.mark.parametrize("b", [1, 2])
+def test_eval_graphs_at_two_shapes_match_eager(cuda, b):
+    from jperceiver_tpu_torch.engine import make_eval_step
+
+    model = _graph_model()
+    eager = make_eval_step(model, device=cuda, graph=False)
+    captured = make_eval_step(model, device=cuda)
+    g = torch.Generator(device=cuda).manual_seed(b)
+    xs = [torch.rand(n, 3, 3, 128, 128, device=cuda, generator=g) for n in (b, b + 2)] * 2
+    for x in xs:
+        reset_launch_counts()
+        want = eager({"color_aug": x})
+        n_eager = launch_counts()
+        reset_launch_counts()
+        got = captured({"color_aug": x})
+        torch.cuda.synchronize()
+        assert launch_counts() == n_eager
+        assert sorted(got) == sorted(want)
+        assert all(torch.equal(got[k], want[k]) for k in want)
+    assert captured.graphs.captures == 2
+
+
+def test_streaming_graphs_match_eager(cuda):
+    """Chunks of 2 over 6 frames (2, 2, then 1: two graphs) and chunks of
+    4 (4, then 1), each call bit for bit the eager call, twice."""
+    from jperceiver_tpu_torch.engine import make_streaming_fn
+
+    model = _graph_model(dtype=torch.bfloat16)
+    g = torch.Generator(device=cuda).manual_seed(4)
+    frames = torch.rand(6, 3, 128, 128, device=cuda, generator=g)
+    for chunk in (2, 4):
+        eager = make_streaming_fn(model, chunk, cuda, graph=False)
+        captured = make_streaming_fn(model, chunk, cuda)
+        for _ in range(3):
+            want, got = eager(frames), captured(frames)
+            assert all(torch.equal(got[k], want[k]) for k in want)
+        assert captured.graphs.captures == 2

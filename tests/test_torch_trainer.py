@@ -32,6 +32,7 @@ from jperceiver_tpu_torch.config import Config
 from jperceiver_tpu_torch.data import DataLoader, get_dataset
 from jperceiver_tpu_torch.engine import (JsonLogger, Trainer, device_summary,
                                          get_root_logger, make_train_step, set_random_seed)
+from jperceiver_tpu_torch.engine.optim import Adam
 from jperceiver_tpu_torch.models import build_model
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -172,7 +173,7 @@ def test_trainer_builds_the_presets_optimizer(idle_model):
     spe = 4
     step = Trainer(idle_model, cfg, [], steps_per_epoch=spe, device="cpu").train_step
     _, jsched = jax_build_optimizer(jcfg, spe)
-    assert type(step.optimizer) is torch.optim.Adam and step.clip == 35.0
+    assert type(step.optimizer) is Adam and step.clip == 35.0
     for it in (0, 50 * spe - 1, 50 * spe, 180 * spe):
         assert step.schedule(it) == pytest.approx(float(jsched(it)), rel=1e-6), it
     assert step.schedule(50 * spe) == pytest.approx(1e-5)

@@ -124,7 +124,7 @@ def _zero1(inp: dict, work_dir: str) -> dict:
         shutil.rmtree(work_dir, ignore_errors=True)
     resumed(local)
     moments = sum(v.numel() for st in on.optimizer.optim.state.values()
-                  for k, v in st.items() if k in ("exp_avg", "exp_avg_sq")) // 2
+                  for k, v in st.items() if k in ("mu", "nu")) // 2
     return {"off_equals_on": same(off, on), "resumed_equals_on": same(resumed, on),
             "resumed_epoch": epoch, "iteration": resumed.iteration,
             "local_moment_elements": moments,
