@@ -97,11 +97,18 @@ Phases, each of which raises on failure:
      one-process step's spread -- kernels on against off, or under a
      rounding-level change of the input pixels -- plus 1e-3 of its norm),
      each rank's launches a step, and ZeRO-1 over three whole steps bit
-     for bit the plain step (gradients a step and weights); (b) two ranks of
+     for bit the plain step (gradients a step and weights), and one step
+     with each cross-rank reduction swapped for a float64 one (BatchNorm's
+     moments, the loss denominators, DDP's bucket sum), the trunk
+     distances logged and, with BatchNorm's moments in float64 on both
+     sides, every parameter's gradient within 3x its on/off distance +
+     1e-3 of its scale; (b) two ranks of
      `tools/train.py --launcher pytorch --dist_backend gloo` in bf16, 2
      epochs of 4 steps with validation on 13 scenes (launches per rank,
-     rank 0 alone writing, n_eval_samples 13, finite losses); (c) one rank
-     of the same CLI on NCCL, its default on the card, 1 epoch of 2 steps;
+     rank 0 alone writing, n_eval_samples 13, finite losses, the step
+     eager); (c) one rank of the same CLI on NCCL, its default on the
+     card, 7 epochs of 2 steps: the step captured at its 12th, past DDP's
+     warm-ups;
  12. `tools/profile_step.py` for 5 steps of the 1024^2 bf16 step, then
      `tools/trace_summary.py` on its trace (K1-K5 and both pool backwards
      by name with device time), and `tools/complexity.py` at 1024^2 (its
@@ -134,14 +141,26 @@ Phases, each of which raises on failure:
      each hand kernel's launches in a profiled replay by name equal to the
      eager step's counters (phases 8 and 9) and the replay's; a captured
      `.item()` raises; times
-     captured against eager (not gated).
+     captured against eager (not gated);
+ 16. ddp_graph: the captured data-parallel step (DDP, the global or
+     per-rank BatchNorm, the loss denominators and ZeRO-1 in one CUDA
+     graph a rank) on one NCCL rank a card (one on a one-card machine),
+     at the fit's step (B=3 a rank, remat, bf16): captured against its
+     eager twin over 11 warm-ups, the capture and three replays across an
+     LR milestone, every metric, gradient, weight, Adam moment, BatchNorm
+     statistic and the generator bit for bit, for bn_groups 1 (and the
+     world size where it differs) and ZeRO-1 (graph=None at one rank,
+     graph=True at more, where None stays eager); each hand kernel's launches
+     in a profiled replay at phase 9's counts a step, NCCL's kernels by
+     name; times (not gated). `python3 chip_smoke.py --ddp-graph 2 4`
+     runs phase 16 alone on 2 and then 4 cards.
 
 Phases 9, 10 and 13 run the step and the eval hook's forward as CUDA
 graphs, the default on the card (`make_train_step(graph=None)`); the
 counters add a graph's launches at each replay.
 
 Prints the card line, a JSON line describing every kernel (with its
-launches in phases 8-11 and 13), and last the device line. Full results go to
+launches in phases 8-11, 13 and 16), and last the device line. Full results go to
 chiprun_out/chip_smoke.json. Exits non-zero without a CUDA device, outside
 a checkout of the repo, or when a phase fails.
 """
@@ -1541,7 +1560,7 @@ def _same(torch, a, b) -> bool:
     bit for bit."""
     if isinstance(a, torch.Tensor):
         return (isinstance(b, torch.Tensor) and a.dtype == b.dtype and a.shape == b.shape
-                and torch.equal(a.cpu(), b.cpu()))
+                and torch.equal(a, b.to(a.device)))
     if isinstance(a, dict):
         return (isinstance(b, dict) and a.keys() == b.keys()
                 and all(_same(torch, a[k], b[k]) for k in a))
@@ -2325,6 +2344,7 @@ def phase_repeat(torch, card: str) -> dict:
 DDP_B = 3  # per rank: the preset's imgs_per_gpu
 DDP_WORLD = 2
 DDP_STEPS, DDP_EPOCHS, DDP_VAL = 4, 2, 13
+DDP_C_EPOCHS = 7  # phase 11(c): 2 steps an epoch, past the captured step's 11 warm-ups
 CHILD_TIMEOUT_S = 420
 
 
@@ -2346,15 +2366,17 @@ def _free_port() -> int:
 
 
 def _run_children(role: str, d: str, world: int, timeout_s: float,
-                  env_extra: dict | None = None) -> list[dict]:
+                  env_extra: dict | None = None, one_card_each: bool = False) -> list[dict]:
     """`world` ranks of `chip_smoke.py --child <role> <d>`, all on card 0
-    (LOCAL_RANK 0: one process per host in torchrun's terms), each with a
-    time limit and `env_extra` in its environment; a child that fails or
-    hangs fails the phase. Returns each rank's `<d>/<role>_rank<r>.json`."""
+    (LOCAL_RANK 0: one process per host in torchrun's terms) or, with
+    `one_card_each`, rank r on card r, each with a time limit and
+    `env_extra` in its environment; a child that fails or hangs fails the
+    phase. Returns each rank's `<d>/<role>_rank<r>.json`."""
     port = _free_port()
     procs = []
     for r in range(world):
-        env = dict(os.environ, RANK=str(r), WORLD_SIZE=str(world), LOCAL_RANK="0",
+        env = dict(os.environ, RANK=str(r), WORLD_SIZE=str(world),
+                   LOCAL_RANK=str(r if one_card_each else 0),
                    MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port), **(env_extra or {}))
         log_f = open(os.path.join(d, f"{role}_rank{r}.log"), "w")
         procs.append((subprocess.Popen([sys.executable, os.path.abspath(__file__), "--child",
@@ -2365,8 +2387,12 @@ def _run_children(role: str, d: str, world: int, timeout_s: float,
         for p, _ in procs:
             p.wait(timeout=max(1.0, timeout_s - (time.perf_counter() - t0)))
     except subprocess.TimeoutExpired:
+        tails = []
+        for r in range(world):
+            with open(os.path.join(d, f"{role}_rank{r}.log")) as f:
+                tails.append(f"rank {r}:\n{f.read()[-3000:]}")
         raise AssertionError(f"{role}: a child did not finish within {timeout_s} s "
-                             "(a hung collective?)")
+                             "(a hung collective?)\n" + "\n".join(tails))
     finally:
         for p, f in procs:
             if p.poll() is None:
@@ -2406,6 +2432,95 @@ def _ddp_step(weights, bn_groups: int, on: bool, zero1: bool = False):
                            optim_cfg=cfg, zero1=zero1, graph=False)
     set_kernels(model, on, on, on, stem_pool=on)
     return step
+
+
+# Queue 3 item 2: phase 11(a)'s step with one cross-rank reduction at a time
+# swapped for a float64 one (the port's stay fp32, as the JAX package's psum).
+F64_SWAPS = ("bn_moments", "denominators", "ddp_sum")
+# (bn_groups, swap) of the two ranks' swapped steps: every swap at bn_groups
+# 1; at 2, where no moment crosses the ranks, BatchNorm's moments alone
+# (the loss denominators and DDP's sum are the same there).
+F64_RUNS = tuple((1, swap) for swap in F64_SWAPS) + ((2, "bn_moments"),)
+# The trunks whose gradients phase 11(a) moved most against their spread.
+F64_TRUNKS = ("CycledViewProjection", "PoseEncoder")
+
+
+def _bn_forward_f64(self, x):
+    """`BatchNorm2d.forward` with the batch moments taken, and under a
+    process group at bn_groups 1 all-reduced, in float64, then rounded to
+    the statistics' dtype (the swap "bn_moments"; one process takes it too,
+    over the global batch or its `groups` blocks)."""
+    import torch
+
+    from jperceiver_tpu_torch import parallel as dist
+
+    xf = x.to(torch.promote_types(x.dtype, torch.float32))
+    if not self.training:
+        return self._normalize(xf, self.running_mean, self.running_var).to(x.dtype)
+    distributed = dist.is_distributed()
+    g = 1 if distributed else self.groups
+    xd = xf.double().reshape(g, xf.shape[0] // g, *xf.shape[1:])
+    stats = torch.stack([xd.mean((1, 3, 4)), (xd * xd).mean((1, 3, 4))], 1)
+    if distributed and self.groups == 1:
+        stats = dist.all_reduce_sum(stats) / dist.world_size()
+    mean = stats[:, 0]
+    var = torch.clamp_min(stats[:, 1] - mean * mean, 0.0)
+    mean, var = mean.to(xf.dtype), var.to(xf.dtype)
+    if self.update_stats:
+        running = torch.stack([mean.mean(0), var.mean(0)]).detach()
+        if distributed and self.groups > 1:
+            running = dist.all_reduce_mean(running)
+        self._update_running(running[0], running[1])
+    y = self._normalize(xf.reshape(xd.shape), mean[:, None], var[:, None])
+    return y.reshape(xf.shape).to(x.dtype)
+
+
+def _f64_global_sum(x):
+    """`parallel.global_sum` summed over the ranks in float64, rounded back
+    (the swap "denominators"; the identity in one process)."""
+    from jperceiver_tpu_torch import parallel as dist
+
+    return dist.all_reduce_sum(x.detach().double()).to(x.dtype)
+
+
+def _f64_sum_hook(state, bucket):
+    """A DDP communication hook: the bucket summed over the ranks in
+    float64, divided by the world size, rounded back (the swap "ddp_sum")."""
+    import torch.distributed as tdist
+
+    buf = bucket.buffer()
+
+    def done(fut):
+        value = fut.value()
+        total = value[0] if isinstance(value, list) else value
+        return buf.copy_(total / tdist.get_world_size())
+
+    return tdist.all_reduce(buf.double(), async_op=True).get_future().then(done)
+
+
+class _f64_swap:
+    """Inside the block, `swap` ("bn_moments" or "denominators") takes its
+    float64 form; "ddp_sum" is a hook on the step's DDP (`_f64_sum_hook`)."""
+
+    def __init__(self, swap: str):
+        self.swap, self.saved = swap, []
+
+    def __enter__(self):
+        import jperceiver_tpu_torch.ops.seg_losses as seg_losses
+        import jperceiver_tpu_torch.parallel as par
+        from jperceiver_tpu_torch.models.common import BatchNorm2d
+
+        patch = {"bn_moments": [(BatchNorm2d, "forward", _bn_forward_f64)],
+                 "denominators": [(par, "global_sum", _f64_global_sum),
+                                  (seg_losses, "global_sum", _f64_global_sum)]}
+        for obj, name, value in patch.get(self.swap, []):
+            self.saved.append((obj, name, getattr(obj, name)))
+            setattr(obj, name, value)
+        return self
+
+    def __exit__(self, *exc):
+        for obj, name, value in self.saved:
+            setattr(obj, name, value)
 
 
 def child_step(torch, d: str) -> dict:
@@ -2467,6 +2582,24 @@ def child_step(torch, d: str) -> dict:
     res["param_elements"] = sum(p.numel() for p in on.params)
     del off, on, grads
     torch.cuda.empty_cache()
+    # Queue 3 item 2: one step (bn_groups 1) with each cross-rank reduction
+    # swapped for a float64 one, one at a time.
+    res["f64_swaps"] = {}
+    for g, swap in F64_RUNS:
+        with _f64_swap(swap):
+            step = _ddp_step(inp["weights"], g, True)
+            if swap == "ddp_sum":
+                step.ddp.register_comm_hook(None, _f64_sum_hook)
+            t0 = time.perf_counter()
+            m = step.reduce_metrics(step(local))
+            torch.cuda.synchronize()
+        res["f64_swaps"][f"{swap}_bn{g}"] = {"seconds": time.perf_counter() - t0,
+                                             "loss": float(m["loss"])}
+        if r == 0:
+            torch.save({n: p.grad.detach().cpu() for n, p in step.model.named_parameters()},
+                       os.path.join(d, f"grads_{swap}_bn{g}.pt"))
+        del step, m
+        torch.cuda.empty_cache()
     res["peak_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9
     return res
 
@@ -2521,16 +2654,26 @@ def child_cli(torch, d: str) -> dict:
             "launches": kernels.launch_counts(), "wrote": sorted(set(wrote)),
             "iteration": trainer.train_step.iteration,
             "n_val_batches": len(trainer.eval_hook.loader), "device": str(trainer.device),
+            "graphed": trainer.train_step.graphed,
+            "captures": trainer.train_step.graphs.captures,
+            "eval_captures": trainer.eval_hook.eval_step.graphs.captures,
             "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9}
 
 
 def child_main(role: str, d: str) -> int:
+    import faulthandler
+
     import torch
+
+    # A child that hangs writes every thread's stack to its log before the
+    # parent's time limit kills it.
+    faulthandler.dump_traceback_later(CHILD_TIMEOUT_S - 30, exit=False)
 
     sys.path.insert(0, ROOT)
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
-    res = {"step": child_step, "cli": child_cli, "repeat": child_repeat}[role](torch, d)
+    res = {"step": child_step, "cli": child_cli, "repeat": child_repeat,
+           "ddp_graph": child_ddp_graph}[role](torch, d)
     with open(os.path.join(d, f"{role}_rank{res['rank']}.json"), "w") as f:
         json.dump(res, f)
     if torch.distributed.is_initialized():
@@ -2560,8 +2703,14 @@ def phase_ddp(torch, card: str, per_step: dict, n_k3: int) -> dict:
           rank's launches those of its 8 steps and 7 eval forwards an epoch,
           rank 0 alone writing checkpoints and the log, n_eval_samples 13,
           finite losses;
-      (c) one rank of the same CLI on its default backend (NCCL), 1 epoch of
-          2 steps, validation on 3 scenes.
+      (c) one rank of the same CLI on its default backend (NCCL), 7 epochs
+          of 2 steps, validation on 3 scenes, checkpoints at the start and
+          the end: the step captured once, at its 12th, past DDP's 11
+          eager warm-ups.
+    (a) also runs one step with each cross-rank reduction swapped for a
+    float64 one (`F64_SWAPS`, ROADMAP queue 3 item 2): logged, and with
+    BatchNorm's moments in float64 (one process too) every parameter
+    within the per-parameter bound, the gate the fp32 step cannot meet.
     Two ranks on one card give no throughput: their times are logged as
     times, beside the card's name and power limit."""
     import shutil
@@ -2609,6 +2758,16 @@ def phase_ddp(torch, card: str, per_step: dict, n_k3: int) -> dict:
                                   for n, p in step.model.named_parameters()},
                                  [p[0].cpu() for p in probes])
                 del step, m
+        # Queue 3 item 2: the one-process step with BatchNorm's moments in
+        # float64, the reference of the two ranks' "bn_moments" swap (the
+        # other swaps are the identity in one process).
+        for g in (1, 2):
+            with _f64_swap("bn_moments"):
+                step = _ddp_step(weights, g, True)
+                step(batch)
+                refs[g, "bn_moments"] = (None, {n: p.grad.detach().cpu()
+                                                for n, p in step.model.named_parameters()}, None)
+                del step
         del model
         torch.cuda.empty_cache()
         t0 = time.perf_counter()
@@ -2683,16 +2842,25 @@ def phase_ddp(torch, card: str, per_step: dict, n_k3: int) -> dict:
                                      f"{r['zero1_step_grad_max_abs_diff']}, moment share {share}")
         if sum(r["zero1_local_moment_elements"] for r in ranks) != ranks[0]["param_elements"]:
             raise AssertionError("ddp (a) ZeRO-1: the ranks' moments do not add up to the model")
+        # Queue 3 item 2: with BatchNorm's moments in float64 on both sides
+        # every parameter is within the per-parameter bound, so the
+        # fp32 moments' rounding is what moved the default step's: gated.
+        swaps = res["a"]["f64_swaps"] = _f64_swap_readings(torch, d_a, refs)
+        for g in (1, 2):
+            if swaps[f"bn_moments_bn{g}"]["params_over_bound"]:
+                raise AssertionError(f"ddp (a) bn_groups {g} with BatchNorm's moments in "
+                                     f"float64: {swaps[f'bn_moments_bn{g}']}")
         log(f"ddp (a) [{card}]: {json.dumps({k: v for k, v in res['a'].items()})}")
 
         # (b), (c): the train CLI, as torchrun starts it.
-        def cli(name, world, scenes, epochs, val, backend):
+        def cli(name, world, scenes, epochs, val, backend, ckpt_interval=1):
             d = os.path.join(root, name)
             os.makedirs(d)
             work = os.path.join(d, "work")
             cfg = _preset({"data.name": "simulated", "data.n_scenes": scenes,
                            "model.compute_dtype": "bfloat16", "total_epochs": epochs,
-                           "log_config.interval": scenes // (world * DDP_B)})
+                           "log_config.interval": scenes // (world * DDP_B),
+                           "checkpoint_config.interval": ckpt_interval})
             cfg_path = _write_config(cfg, os.path.join(d, "cfg.py"))
             argv = ["--config", cfg_path, "--work_dir", work, "--seed", "0",
                     "--launcher", "pytorch"] + (["--dist_backend", backend] if backend else [])
@@ -2710,36 +2878,83 @@ def phase_ddp(torch, card: str, per_step: dict, n_k3: int) -> dict:
                             "gloo")
         n_fwd = -(-DDP_VAL // DDP_WORLD) * DDP_EPOCHS  # 7 a rank an epoch, the tail padded
         res["b"] = {"seconds": secs, "ranks": b, "payloads": logs}
-        _check_cli(b, logs, per_step, n_k3, n_steps, n_fwd, DDP_EPOCHS, DDP_VAL, "gloo", "b")
+        _check_cli(b, logs, per_step, n_k3, n_steps, n_fwd, DDP_EPOCHS, DDP_VAL, "gloo", "b",
+                   captures=0)
         log(f"ddp (b) [{card}]: {secs:.1f} s, ranks "
             f"{[{k: r[k] for k in ('seconds', 'iteration', 'peak_memory_gb')} for r in b]}")
 
-        c, logs, secs = cli("c", 1, DDP_B * 2, 1, 3, None)
+        # (c) past the captured step's warm-ups: 7 epochs of 2 steps,
+        # the step captured at its 12th, a checkpoint at the start and the end.
+        c, logs, secs = cli("c", 1, DDP_B * 2, DDP_C_EPOCHS, 3, None, DDP_C_EPOCHS)
         res["c"] = {"seconds": secs, "ranks": c, "payloads": logs}
-        _check_cli(c, logs, per_step, n_k3, 2, 3, 1, 3, "nccl", "c")
+        _check_cli(c, logs, per_step, n_k3, 2 * DDP_C_EPOCHS, 3 * DDP_C_EPOCHS, DDP_C_EPOCHS, 3,
+                   "nccl", "c", ckpt_epochs=(0, DDP_C_EPOCHS), captures=1)
         log(f"ddp (c) [{card}]: {secs:.1f} s, {c[0]['backend']}, "
-            f"{c[0]['seconds']:.1f} s in the rank")
+            f"{c[0]['seconds']:.1f} s in the rank, step captures {c[0]['captures']}")
     finally:
         shutil.rmtree(root, ignore_errors=True)
     res["seconds"] = time.perf_counter() - t_phase
     return res
 
 
-def _check_cli(ranks, logs, per_step, n_k3, n_steps, n_fwd, epochs, n_val, backend, what):
-    """Phase 11(b)/(c): every rank's launches, iteration and backend; rank 0
-    alone wrote the checkpoints (the start's and one an epoch) and the log;
-    the val payloads count every validation sample once; finite losses."""
+def _f64_swap_readings(torch, d: str, refs: dict) -> dict:
+    """Queue 3 item 2's readings: for each run of `F64_RUNS` and the
+    unswapped steps, the two ranks' gradient against the one-process step
+    at the same bn_groups with the same swap, per trunk of `F64_TRUNKS` (L2
+    over its parameters) against the one-process spread (the largest of
+    kernels off and the two input nudges), and over every parameter how
+    many exceed the per-parameter bound (3x the on/off distance + 1e-3 of
+    the parameter's scale), with the worst ratios."""
+    pert = ("off", "on~1", "on~2")
+    runs = {f"unswapped_bn{g}": (g, f"grads_bn{g}.pt", refs[g, "on"][1]) for g in (1, 2)}
+    for g, swap in F64_RUNS:
+        runs[f"{swap}_bn{g}"] = (g, f"grads_{swap}_bn{g}.pt",
+                                 refs[g, swap][1] if swap == "bn_moments" else refs[g, "on"][1])
+    out = {}
+    for name, (g, fname, ref) in runs.items():
+        got = torch.load(os.path.join(d, fname), weights_only=True)
+        g_on = refs[g, "on"][1]
+        trunks = {}
+        for trunk in F64_TRUNKS:
+            names = [n for n in ref if n.split(".")[0] == trunk]
+            dist = math.sqrt(sum(float(((got[n] - ref[n]) ** 2).sum()) for n in names))
+            spread = max(math.sqrt(sum(float(((refs[g, k][1][n] - g_on[n]) ** 2).sum())
+                                       for n in names)) for k in pert)
+            trunks[trunk] = {"distance": dist, "spread": spread,
+                             "ratio": dist / spread if spread else math.inf}
+        ratios = []
+        for n, r in ref.items():
+            bound = 3 * (refs[g, "off"][1][n] - g_on[n]).abs().max().item() \
+                + 1e-3 * g_on[n].abs().max().item()
+            e = (got[n] - r).abs().max().item()
+            ratios.append([e / bound if bound else (math.inf if e else 0.0), n])
+        ratios.sort(reverse=True)
+        out[name] = {"trunks": trunks, "params_over_bound": sum(q > 1 for q, _ in ratios),
+                     "worst": ratios[:3]}
+    return out
+
+
+def _check_cli(ranks, logs, per_step, n_k3, n_steps, n_fwd, epochs, n_val, backend, what,
+               ckpt_epochs=None, captures=0):
+    """Phase 11(b)/(c): every rank's launches, iteration, backend and step
+    captures (gloo: none; NCCL: one, past the warm-ups); rank 0 alone wrote
+    the checkpoints (the start's and one at each of `ckpt_epochs`, default
+    every epoch) and the log; the val payloads count every validation
+    sample once; finite losses."""
     want = {k: v * n_steps for k, v in per_step.items()}
     want["conv3x3"] += n_k3 * n_fwd
     want["maxpool5x5"] += per_step["maxpool5x5_bwd"] * n_fwd
-    ckpts = [os.path.join("checkpoints", f"epoch_{e}.pth.tmp") for e in range(epochs + 1)]
+    ckpts = [os.path.join("checkpoints", f"epoch_{e}.pth.tmp")
+             for e in (range(epochs + 1) if ckpt_epochs is None else ckpt_epochs)]
     for r in ranks:
         if r["launches"] != want:
             raise AssertionError(f"ddp ({what}) rank {r['rank']} launches {r['launches']}, "
                                  f"expected {want}")
-        if r["iteration"] != n_steps or r["backend"] != backend:
+        if (r["iteration"] != n_steps or r["backend"] != backend
+                or (r["graphed"], r["captures"]) != (captures > 0, captures)):
             raise AssertionError(f"ddp ({what}) rank {r['rank']}: iteration {r['iteration']}, "
-                                 f"backend {r['backend']}")
+                                 f"backend {r['backend']}, graphed {r['graphed']}, step "
+                                 f"captures {r['captures']}")
         wrote = r["wrote"]
         if r["rank"] == 0:
             if ([w for w in wrote if w.startswith("checkpoints")] != ckpts
@@ -2846,8 +3061,8 @@ def _snapshot(step, metrics) -> dict:
 
 def _final_state(step) -> dict:
     return {"model": {k: v.clone() for k, v in step.model.state_dict().items()},
-            "optimizer": [{k: v.clone() for k, v in st.items()}
-                          for st in step.optimizer.state.values()],
+            "optimizer": [{k: v.clone() for k, v in st.items()} for st in
+                          getattr(step.optimizer, "optim", step.optimizer).state.values()],
             "generator": step.generator.get_state(), "iteration": step.iteration}
 
 
@@ -2857,21 +3072,27 @@ def _captured_vs_eager(torch, make_step, batches, what: str) -> dict:
     the rest replays), over `batches`. Raises unless every step's metrics,
     gradients and weights, and the final model (BatchNorm statistics
     included), Adam state, generator and iteration are bit for bit equal.
-    Returns each run's peak memory and the capture's seconds, and the
-    captured step itself."""
+    Returns each run's peak memory, each step's seconds (synchronised
+    before and after it, the snapshots outside) and the capture's seconds,
+    and the captured step itself."""
     runs = {}
     for graph in (False, None):
         step = make_step(graph)
         torch.cuda.synchronize()
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
-        snaps, lrs = [], []
+        snaps, lrs, secs = [], [], []
         for b in batches:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
             m = step(b)
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
             snaps.append(_snapshot(step, m))
             lrs.append(float(step.optimizer.param_groups[0]["lr"]))
         torch.cuda.synchronize()
         runs[graph] = {"snaps": snaps, "final": _final_state(step), "lrs": lrs, "step": step,
+                       "step_s": secs,
                        "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9}
         if graph is False:
             del step
@@ -2886,6 +3107,7 @@ def _captured_vs_eager(torch, make_step, batches, what: str) -> dict:
            "losses": [float(s["metrics"]["loss"]) for s in capt["snaps"]],
            "grad_norms": [float(s["metrics"]["grad_norm"]) for s in capt["snaps"]],
            "captures": step.graphs.captures, "capture_s": step.graphs.capture_s,
+           "step_s": {"eager": eager["step_s"], "captured": capt["step_s"]},
            "peak_memory_gb": {"eager": eager["peak_memory_gb"],
                               "captured": capt["peak_memory_gb"]},
            "differing": differing}
@@ -3107,6 +3329,291 @@ def phase_graph(torch, card: str, per_step: dict, n_k3_train: int, ft: dict,
     return res
 
 
+# ---- Phase 16: the captured data-parallel step --------------------------------
+
+def _ddpg_schedule() -> tuple[int, int]:
+    """Phase 16's steps: DDP's eager warm-ups (`engine/graphs.py::
+    DDP_WARMUP`), the capture (which replays once) and three replays; and
+    the LR milestone's iteration, between the capture's replay and the
+    next."""
+    from jperceiver_tpu_torch.engine.graphs import DDP_WARMUP
+
+    return DDP_WARMUP + 1 + 3, DDP_WARMUP + 2
+
+
+def _ddpg_configs(world: int) -> list:
+    """(name, bn_groups, zero1): bn_groups 1, the world size (on one card
+    the same step as 1, so not run twice), ZeRO-1."""
+    return ([("bn1", 1, False)] + ([("bnW", world, False)] if world > 1 else [])
+            + [("zero1", 1, True)])
+
+
+def _nccl_kernels(dev_events) -> dict:
+    """NCCL's kernels in a trace: count and device ms by name."""
+    out: dict = {}
+    for e in dev_events:
+        if "nccl" in e.name.lower():
+            row = out.setdefault(e.name, {"count": 0, "ms": 0.0})
+            row["count"] += 1
+            row["ms"] += e.time_range.elapsed_us() / 1e3
+    return out
+
+
+def _collective_ms(torch, sizes: list[int], reps: int = 5) -> float:
+    """Device ms of all-reduces of fp32 buffers of `sizes` elements, back
+    to back as a step issues them, captured in a CUDA graph as the step
+    holds them and replayed (CUDA events; every rank calls it alike)."""
+    import torch.distributed as tdist
+
+    bufs = [torch.zeros(n, device="cuda") for n in sizes]
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):  # NCCL's warm-up, as the step's
+        for b in bufs:
+            tdist.all_reduce(b)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    # thread_local: NCCL's watchdog thread queries its events meanwhile.
+    with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+        for b in bufs:
+            tdist.all_reduce(b)
+    graph.replay()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(reps):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def _ddpg_collectives(torch, step, eager, batch) -> dict:
+    """At more than one rank: the Python-issued all-reduces of one eager
+    step (the BatchNorm statistics and the loss denominators; DDP's buckets
+    are issued from C++), and the device ms of those all-reduces and of
+    the gradients' buckets alone, captured."""
+    import torch.distributed as tdist
+
+    eager(batch)
+    issued, all_reduce0 = [], tdist.all_reduce
+
+    def counting(t, *a, **k):
+        issued.append(t.numel())
+        return all_reduce0(t, *a, **k)
+
+    tdist.all_reduce = counting
+    try:
+        eager(batch)
+    finally:
+        tdist.all_reduce = all_reduce0
+    torch.cuda.synchronize()
+    # The gradients' all-reduce as DDP's rebuilt buckets take it: 25 MiB
+    # each (its default cap), fp32.
+    n_grad = sum(p.numel() for p in step.params)
+    cap = 25 * 2 ** 20 // 4
+    return {"python_all_reduces": {"count": len(issued), "elements": sum(issued),
+                                   "largest": max(issued, default=0)},
+            "gradient_elements": n_grad,
+            "alone_ms": {"gradient_buckets": _collective_ms(
+                torch, [cap] * (n_grad // cap) + [n_grad % cap] * bool(n_grad % cap)),
+                         "python_all_reduces": _collective_ms(torch, issued, reps=2)}}
+
+
+def child_ddp_graph(torch, d: str) -> dict:
+    """A rank of phase 16, on its own card over NCCL: the fit's step (the
+    kitti_odom_1024 preset, B = 3 a rank, remat, bf16) captured against
+    its eager twin from the same weights and batches, for each of
+    `_ddpg_configs` (graph=None at one rank, the default; graph=True at
+    more, where None stays eager), each step timed; then, for bn_groups 1,
+    a profiled replay (the hand kernels and NCCL's kernels by name) and,
+    at more than one rank (at one, NCCL moves nothing), the Python-issued
+    all-reduces of an eager step and bucket-sized and BatchNorm-sized
+    all-reduces alone."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from jperceiver_tpu_torch.data import synthetic_batch
+    from jperceiver_tpu_torch.engine import make_train_step
+    from jperceiver_tpu_torch.engine.trainer import batch_to
+    from jperceiver_tpu_torch.models import build_model
+    from jperceiver_tpu_torch.ops import cuda as kernels
+    from jperceiver_tpu_torch.parallel import init_distributed, rank, world_size
+
+    with open(os.path.join(d, "args.json")) as f:
+        args = json.load(f)
+    init_distributed("nccl", timeout_s=CHILD_TIMEOUT_S)
+    r, w = rank(), world_size()
+    res = {"rank": r, "world": w, "card": torch.cuda.get_device_name(),
+           "torch": torch.__version__, "cuda": torch.version.cuda,
+           "nccl": ".".join(map(str, torch.cuda.nccl.version())),
+           "env": {k: v for k, v in os.environ.items() if "NCCL" in k}, "configs": {}}
+    # Each rank its own batches (rows of no common global batch: the
+    # comparison is captured against eager, rank by rank).
+    batches = [batch_to(synthetic_batch(DDP_B, HW, HW, OCC, seed=100 * r + s), "cuda")
+               for s in range(2)]
+    n_calls, milestone = _ddpg_schedule()
+    calls = [batches[i % 2] for i in range(n_calls)]
+    torch.manual_seed(0)
+    init = build_model(_preset({"model.compute_dtype": "bfloat16"}).model).state_dict()
+
+    def make(groups, zero1, graph):
+        cfg = _preset({"model.compute_dtype": "bfloat16", "model.bn_groups": groups,
+                       "lr_config.step": [1]})
+        model = build_model(cfg.model)
+        model.load_state_dict(init)
+        return make_train_step(model, cfg.model, steps_per_epoch=milestone, seed=0,
+                               optim_cfg=cfg, zero1=zero1,
+                               graph=graph if graph is False or w == 1 else True)
+
+    for name, groups, zero1 in _ddpg_configs(w):
+        t0 = time.perf_counter()
+        out, step = _captured_vs_eager(
+            torch, lambda graph: make(groups, zero1, graph), calls,
+            f"ddp_graph {name} (rank {r} of {w})")
+        lrs = out.pop("lrs")
+        want = [1e-4] * milestone + [1e-5] * (n_calls - milestone)
+        if not all(math.isclose(a, b, rel_tol=1e-6) for a, b in zip(lrs, want)):
+            raise AssertionError(f"ddp_graph {name}: learning rates {lrs}, expected {want}")
+        out.update(seconds=time.perf_counter() - t0, lr_first_last=[lrs[0], lrs[-1]])
+        res["configs"][name] = out
+        if name != "bn1":
+            del step
+            torch.cuda.empty_cache()
+            continue
+        # A profiled replay: the hand kernels and NCCL's kernels by name;
+        # the memory the captured step holds (the compare's eager twin and
+        # snapshots are gone), its graph's pool among the reserved bytes.
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launch_counts()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            step(batches[0])
+            torch.cuda.synchronize()
+        replay = _prof_counts(torch, prof)
+        replay["launch_counts"] = kernels.launch_counts()
+        replay["counters"] = _counters_as_profiled(replay["launch_counts"])
+        replay["nccl"] = _nccl_kernels(_device_events(prof))
+        replay["nccl_ms"] = sum(v["ms"] for v in replay["nccl"].values())
+        res["replay"] = replay
+        res["captured_memory_gb"] = {"peak_allocated": torch.cuda.max_memory_allocated() / 1e9,
+                                     "reserved": torch.cuda.memory_reserved() / 1e9}
+        want_k = args["expected_replay"]
+        if any(replay[k] != want_k[k] or replay["counters"][k] != want_k[k]
+               for k in _KERNEL_KEYS):
+            raise AssertionError(f"ddp_graph rank {r}: replay launches {replay}, expected "
+                                 f"{want_k}")
+        # A rank's step from the compare: eager past its first step, captured
+        # over the replays after the capture.
+        secs = out["step_s"]
+        timed = {"eager": secs["eager"][1:],
+                 "captured": secs["captured"][step.graphs.warmup + 1:]}
+        res["step_s"] = {k: {"median": sorted(v)[len(v) // 2], "samples": v}
+                         for k, v in timed.items()}
+        res["frames_per_s"] = {k: DDP_B / v["median"] for k, v in res["step_s"].items()}
+        if w > 1:
+            res.update(_ddpg_collectives(torch, step, make(groups, zero1, False), batches[0]))
+        del step
+        torch.cuda.empty_cache()
+    res["peak_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    return res
+
+
+def phase_ddp_graph(torch, card: str, per_step: dict, world: int,
+                    env_extra: dict | None = None) -> dict:
+    """Phase 16: the captured data-parallel step (`engine/graphs.py`: DDP,
+    the global or per-rank BatchNorm, the loss denominators and ZeRO-1 in
+    one CUDA graph a rank), `world` NCCL ranks in child processes, one a
+    card, at the fit's step (kitti_odom_1024: 1024^2, occ 256, B = 3 a
+    rank, remat, bf16, road branch):
+      (a) for bn_groups 1, the world size and ZeRO-1 (`_ddpg_configs`),
+          the captured step against its eager twin (graph=False) from the
+          same weights and batches over `DDP_WARMUP` warm-ups, the capture
+          and three replays, the LR 10x lower from iteration 13: every
+          metric, gradient and weight a step, then the model (BatchNorm
+          statistics included), Adam's moments and the generator, bit for
+          bit, on every rank;
+      (b) each hand kernel's launches in a profiled replay, by name and by
+          the counters, the one-process fit step's (`per_step`); NCCL's
+          kernels in it by name with their device ms;
+      (c) times (not gated): a rank's step captured and eager, from (a)'s
+          bn_groups 1 run, with frames/s a rank and in all, the replay's
+          busy ms and idle share, the capture's seconds, peak memory; at
+          more than one rank the Python-issued all-reduces of a step, and
+          DDP's buckets and those all-reduces timed alone."""
+    import shutil
+    import tempfile
+
+    d = tempfile.mkdtemp(prefix="chip_smoke_ddp_graph_")
+    t_phase = time.perf_counter()
+    want = {"k1": per_step["reproj_fwd"], "k2": per_step["reproj_bwd"],
+            "k3": per_step["conv3x3"] + per_step["conv3x3_dgrad"],
+            "k4": per_step["conv3x3_wgrad"], "k5": per_step["maxpool5x5"],
+            "k5_bwd": per_step["maxpool5x5_bwd"], "stem_pool_bwd": per_step["maxpool3x3s2_bwd"]}
+    try:
+        with open(os.path.join(d, "args.json"), "w") as f:
+            json.dump({"expected_replay": want}, f)
+        ranks = _run_children("ddp_graph", d, world, CHILD_TIMEOUT_S, env_extra,
+                              one_card_each=True)
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    r0 = ranks[0]
+    res = {"card": card, "world": world, "env_extra": env_extra or {}, "ranks": ranks,
+           "frames_per_s_per_rank": r0["frames_per_s"],
+           "frames_per_s_total": {k: world * v for k, v in r0["frames_per_s"].items()},
+           "seconds": time.perf_counter() - t_phase}
+    log(f"ddp_graph [{card}] x {world}: {json.dumps(res)}")
+    return res
+
+
+def fit_per_step(train_sites, remat_trunks) -> dict:
+    """Each hand kernel's launches a step of phase 9's fit: under remat
+    every K3 site and CRP pool of a checkpointed trunk runs its forward
+    again in the backward."""
+    trunks = set(remat_trunks)
+    n_k3 = sum(s["k3"] for s in train_sites)
+    n_k3_re = sum(s["k3"] for s in train_sites if s["module"] in trunks)
+    n_k5_re = 16 if "DepthDecoder" in trunks else 0
+    return {"conv3x3": n_k3 + n_k3_re, "conv3x3_dgrad": n_k3, "conv3x3_wgrad": n_k3,
+            "maxpool5x5": 16 + n_k5_re, "maxpool5x5_bwd": 16, "maxpool5x5_bwd_cot_copy": 0,
+            "maxpool3x3s2_bwd": 4, "maxpool3x3s2_bwd_cot_copy": 0, "reproj_fwd": 1,
+            "reproj_bwd": 1}
+
+
+def main_ddp_graph(worlds: list[int]) -> int:
+    """`chip_smoke.py --ddp-graph W [W ...]`: phase 16 alone at each world
+    size W (W cards, one NCCL rank each), its readings in
+    chiprun_out/ddp_graph.json and, a line a world size, on stdout."""
+    import torch
+
+    if not torch.cuda.is_available() or torch.cuda.device_count() < max(worlds):
+        log(f"chip_smoke --ddp-graph: needs {max(worlds)} CUDA devices")
+        return 2
+    sys.path.insert(0, ROOT)
+    from jperceiver_tpu_torch.models import build_model
+    from jperceiver_tpu_torch.models.jperceiver import conv3x3_sites
+    from jperceiver_tpu_torch.ops.cuda import _build
+
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        check=True, capture_output=True, text=True).stdout.strip().splitlines()
+    print("\n".join(card), flush=True)
+    _build.library()
+    with torch.device("meta"):
+        trunks = build_model(_preset({}).model).remat_trunks
+    per_step = fit_per_step(conv3x3_sites(HW, HW, OCC, branches="road"), trunks)
+    out = {}
+    for w in worlds:
+        out[w] = phase_ddp_graph(torch, card[0], per_step, w)
+        print(json.dumps({"world": w, "frames_per_s_per_rank": out[w]["frames_per_s_per_rank"],
+                          "frames_per_s_total": out[w]["frames_per_s_total"],
+                          "seconds": out[w]["seconds"]}), flush=True)
+    os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
+    with open(os.path.join(ROOT, "chiprun_out", "ddp_graph.json"), "w") as f:
+        json.dump({"cards": card, "worlds": out}, f, indent=1)
+    return 0
+
+
 def main() -> int:
     import torch
 
@@ -3175,16 +3682,8 @@ def main() -> int:
             1, 1, 2 * n_k3_train, n_k3_train, 16, 16, 4):
         raise AssertionError(f"train profiler kernel counts {tp}")
 
-    # Phase 9 under remat: every K3 site and CRP pool of a checkpointed
-    # trunk runs its forward again in the backward.
-    trunks = set(ft["remat_trunks"])
-    n_k3_re = sum(s["k3"] for s in train_sites if s["module"] in trunks)
-    n_k5_re = 16 if "DepthDecoder" in trunks else 0
     n_fit = FIT_EPOCHS * ft["steps_per_epoch"]
-    per_step = {"conv3x3": n_k3_train + n_k3_re, "conv3x3_dgrad": n_k3_train,
-                "conv3x3_wgrad": n_k3_train, "maxpool5x5": 16 + n_k5_re,
-                "maxpool5x5_bwd": 16, "maxpool5x5_bwd_cot_copy": 0, "maxpool3x3s2_bwd": 4,
-                "maxpool3x3s2_bwd_cot_copy": 0, "reproj_fwd": 1, "reproj_bwd": 1}
+    per_step = fit_per_step(train_sites, ft["remat_trunks"])
     ft["expected_launches_per_step"] = per_step
     if ft["launches"] != {k: v * n_fit for k, v in per_step.items()}:
         raise AssertionError(f"fit main-path launches {ft['launches']}, expected "
@@ -3213,6 +3712,8 @@ def main() -> int:
         f"{kitti['decode_ms_per_sample']:.1f} / {kitti['load_ms_per_sample']:.1f}")
     # Phase 15: the entry points as CUDA graphs against their eager twins.
     graph = phase_graph(torch, card, per_step, n_k3_train, ft, kitti)
+    # Phase 16: the captured data-parallel step, one NCCL rank a card.
+    ddpg = phase_ddp_graph(torch, card, per_step, torch.cuda.device_count())
 
     def entry(kid, name, src, replaces, count, err, per, bound_by):
         lib = per["library_ms"]
@@ -3264,12 +3765,16 @@ def main() -> int:
         row["ddp_launches"] = {f"rank{r['rank']}": r["steps"]["1"]["launches"][counter]
                                for r in dp["a"]["ranks"]}
         row["kitti_launches"] = kitti["launches"][counter]
+        # Per rank, in a profiled replay of phase 16's captured step.
+        row["ddp_graph_launches"] = {f"rank{r['rank']}": r["replay"]["launch_counts"][counter]
+                                     for r in ddpg["ranks"]}
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
     with open(os.path.join(ROOT, "chiprun_out", "chip_smoke.json"), "w") as f:
         json.dump({"card": card, "build_s": build_s, "ptxas": ptxas, "k3_sites": n_k3,
                    "k3": k3, "k5": k5, "stem_pool": sp, "eval": ev, "stream": st, "reproj": rp,
                    "conv_bwd": cb, "train": tr, "fit": ft, "workflow": wf, "ddp": dp,
                    "tools": tools, "kitti": kitti, "repeat": rep, "graph": graph,
+                   "ddp_graph": ddpg,
                    "seconds": time.perf_counter() - t_start, "table": table},
                   f, indent=1)
     print(json.dumps(table), flush=True)
@@ -3280,6 +3785,8 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    if len(sys.argv) == 4 and sys.argv[1] == "--child":  # a rank of phase 11
+    if len(sys.argv) == 4 and sys.argv[1] == "--child":  # a rank of phases 11, 14, 16
         sys.exit(child_main(sys.argv[2], sys.argv[3]))
+    if len(sys.argv) > 2 and sys.argv[1] == "--ddp-graph":  # phase 16 alone, on W cards
+        sys.exit(main_ddp_graph([int(w) for w in sys.argv[2:]]))
     sys.exit(main())

@@ -78,7 +78,9 @@ class EvalHook:
     tensor on the model's device), so every rank returns the summary of the
     whole dataset, each sample counted once. `fps` stays the rank's own.
     `graph` is `make_eval_step`'s: a CUDA graph an input shape by default
-    on the card (the last, smaller batch gets its own)."""
+    on the card, on every rank under a process group too (the last,
+    smaller batch gets its own); the ranks' sums after the loop stay
+    outside any graph."""
 
     def __init__(self, model, val_loader: Iterable, cfg, with_depth: bool = True,
                  with_layout: bool = True, max_batches: int | None = None, device=None,

@@ -10,10 +10,30 @@ call's numbers bit for bit.
 `GraphCache` keeps one graph a key, the shapes and dtypes of a call's
 inputs, as jit keeps one program a signature. The first call at a key runs
 eagerly: it builds the kernels, picks cuDNN's algorithms, creates the
-optimizer's state and fills the caches that later calls read. The second
+optimizer's state and fills the caches that later calls read. The next
 captures the body on static copies of its inputs (a capture runs nothing)
 and replays it; later calls copy their inputs into the static tensors and
-replay. Each call runs the body exactly once on the device.
+replay. Each call runs the body exactly once on the device. The eager
+calls before a capture (the warm-ups) run on a side stream, as the capture
+does.
+
+Under a process group the data-parallel training step can be captured
+too, collectives and all, where the group's backend is NCCL on a card
+(`parallel.can_capture`): DDP's bucketed gradient all-reduce, the global
+BatchNorm's and the loss denominators' all-reduces and ZeRO-1's
+broadcasts become nodes of the graph. By default (`graph=None`) it is
+captured under a one-rank NCCL group and runs eagerly under a larger one,
+where the captured step has not yet been shown to match the eager step
+on cards: `graph=True` captures it there. PyTorch's recipe for capturing DDP
+(`torch.cuda.graphs`, "Usage with DistributedDataParallel") is kept:
+DDP built with `static_graph=True` on a side stream, and `DDP_WARMUP`
+eager iterations on a side stream before the capture, past DDP's bucket
+rebuild and its runtime statistics, which it gathers on the host in its
+first ten iterations. Every rank warms up, captures and replays at the
+same call, and the ranks check once, at the capture, that they capture
+the same key: a key one rank alone captured would hang the collectives.
+Gloo's collectives run on the host and cannot be captured: a step with
+collectives stays eager under gloo.
 
 What a replay returns are the graph's static outputs: the next replay at
 the same key writes over them. Read or clone them before that.
@@ -33,20 +53,35 @@ from .. import parallel as dist
 from ..ops.cuda import GraphLaunches
 
 
-def use_graphs(graph: bool | None, device: torch.device, what: str) -> bool:
-    """The `graph` argument of an entry point: None captures on CUDA
-    outside a process group, False runs eagerly (what the CPU always
-    does), True captures and raises where it cannot (on the CPU, or under a
-    process group, whose collectives this port does not capture)."""
+# PyTorch's recipe for capturing DDP: at least 11 eager iterations first.
+DDP_WARMUP = 11
+
+
+def use_graphs(graph: bool | None, device: torch.device, what: str, *,
+               collectives: bool) -> bool:
+    """The `graph` argument of an entry point. `collectives` says whether
+    its body issues collectives under a process group (the training step:
+    DDP, BatchNorm, the loss denominators, ZeRO-1) or not (the eval step,
+    streaming).
+
+    None captures on CUDA, except a body with collectives under a process
+    group of more than one rank, or under a group whose collectives cannot
+    be captured (gloo: `parallel.can_capture`), which runs eagerly, as the
+    CPU does. False runs eagerly. True captures, and raises where it
+    cannot: on the CPU, or for a body with collectives under gloo, naming
+    its backend."""
+    group = collectives and dist.is_distributed()
     if graph is None:
-        return device.type == "cuda" and not dist.is_distributed()
+        return device.type == "cuda" and (
+            not group or (dist.world_size() == 1 and dist.can_capture()))
     if graph:
         if device.type != "cuda":
             raise ValueError(f"{what}: graph=True captures a CUDA graph; the device is "
                              f"{device}")
-        if dist.is_distributed():
-            raise ValueError(f"{what}: graph=True under a process group; the data-parallel "
-                             "step runs eagerly (graph=None or False)")
+        if group and not dist.can_capture():
+            raise ValueError(f"{what}: graph=True under a process group on {dist.backend()}, "
+                             "whose collectives run on the host and cannot be captured in a "
+                             "CUDA graph (NCCL's can); pass graph=None or False")
     return bool(graph)
 
 
@@ -79,15 +114,27 @@ class GraphCache:
     the graph's static tensors before each replay; `held` are tensors that
     the body reads and writes in place and that every call passes as the
     same objects (a carry, state), captured as they are. `generators` are
-    registered with each graph. `name` names the entry point in errors."""
+    registered with each graph. `name` names the entry point in errors.
 
-    def __init__(self, body: Callable, name: str, generators=()):
+    `collectives`: the body issues collectives (the training step under
+    DDP). Under a process group it then warms up `DDP_WARMUP` times and the
+    ranks check at each capture that they capture the same key; else it
+    warms up once. A call runs eagerly while its key has had no eager call
+    or while the cache has made fewer than `warmup` eager calls in all,
+    whatever their keys (under DDP: DDP's own eager iterations); the next
+    call at that key captures."""
+
+    def __init__(self, body: Callable, name: str, generators=(), collectives: bool = False):
         self.body = body
         self.name = name
         self.generators = tuple(generators)
+        self.collectives = collectives and dist.is_distributed()
+        self.warmup = DDP_WARMUP if self.collectives else 1
         self.entries: dict = {}
+        self.eager_calls = 0
         self.captures = 0
         self.capture_s: list[float] = []
+        self._side = None
 
     def clear(self) -> None:
         """Drop every graph (after a restore replaced what they read)."""
@@ -95,11 +142,14 @@ class GraphCache:
 
     def run(self, key, copied: dict, held: dict | None = None):
         held = held or {}
-        if key not in self.entries:
+        entry = self.entries.get(key)
+        if key not in self.entries or (entry is None and self.eager_calls < self.warmup):
             self.entries[key] = None
-            return self.body(**copied, **held)
-        entry = self.entries[key]
+            self.eager_calls += 1
+            return self._eager({**copied, **held})
         if entry is None:
+            if self.collectives:
+                dist.check_same_on_every_rank(key, f"the capture of {self.name}")
             entry = self.entries[key] = self._capture(copied, held)
         else:
             with torch.no_grad():
@@ -109,6 +159,19 @@ class GraphCache:
         entry.launches.replayed()
         return entry.outputs
 
+    def _eager(self, inputs: dict):
+        """A warm-up call, on a side stream on the card (as a capture runs)."""
+        if not torch.cuda.is_available():
+            return self.body(**inputs)
+        if self._side is None:
+            self._side = torch.cuda.Stream()
+        current = torch.cuda.current_stream()
+        self._side.wait_stream(current)
+        with torch.cuda.stream(self._side):
+            out = self.body(**inputs)
+        current.wait_stream(self._side)
+        return out
+
     def _capture(self, copied: dict, held: dict) -> _Captured:
         t0 = time.perf_counter()
         static = {k: None if v is None else v.detach().clone() for k, v in copied.items()}
@@ -117,7 +180,8 @@ class GraphCache:
         launches = GraphLaunches()
         try:
             # thread_local: the prefetch thread may allocate pinned memory
-            # and copy on its own stream while this thread captures.
+            # and copy on its own stream while this thread captures, and
+            # NCCL's watchdog queries its events.
             with launches.capture(), torch.cuda.graph(graph, capture_error_mode="thread_local"):
                 outputs = self.body(**static, **held)
         except Exception as exc:

@@ -36,16 +36,17 @@ def make_eval_step(model, cfg=None, device=None, graph: bool | None = None
     array; outputs are float32 tensors on `device` (see `models/jperceiver`).
 
     `graph` (JAX's `jit`, `engine/graphs.py`): None captures the forward as
-    a CUDA graph an input shape on CUDA outside a process group, False runs
-    it eagerly, True captures or raises. A captured step returns its
-    graph's static outputs, which the next call at that shape writes over.
+    a CUDA graph an input shape on CUDA (under a process group too: the
+    forward has no collective), False runs it eagerly, True captures or
+    raises. A captured step returns its graph's static outputs, which the
+    next call at that shape writes over.
     The graph reads the model's parameters and statistics where they are,
     so it sees every training step between calls.
     """
     dev = resolve_device(device)
     model = model.to(dev).eval()
     set_kernels(model, *conv_gates_from_cfg(cfg))
-    graphed = use_graphs(graph, dev, "make_eval_step")
+    graphed = use_graphs(graph, dev, "make_eval_step", collectives=False)
     gates = kernel_gates(model)
 
     def forward(color_aug):

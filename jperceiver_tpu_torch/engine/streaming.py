@@ -31,17 +31,18 @@ def make_streaming_fn(model, chunk: int = 8, device=None, graph: bool | None = N
     model in eval mode, whatever mode a training step between calls left.
 
     `graph` (JAX's `jit` of the scan, `engine/graphs.py`): None captures a
-    chunk as a CUDA graph, one a chunk length, on CUDA outside a process
-    group; False runs it eagerly; True captures or raises. The carry (the
-    previous frame and the global pose) lives in tensors that every
-    chunk's graph reads and writes in place, as the scan carries it. The
-    outputs `run` returns are its own, not a graph's.
+    chunk as a CUDA graph, one a chunk length, on CUDA (under a process
+    group too: a chunk has no collective); False runs it eagerly; True
+    captures or raises. The carry (the previous frame and the global pose)
+    lives in tensors that every chunk's graph reads and writes in place, as
+    the scan carries it. The outputs `run` returns are its own, not a
+    graph's.
     """
     if chunk < 1:
         raise ValueError(f"chunk must be >= 1, got {chunk}")
     dev = resolve_device(device)
     model = model.to(dev).eval()
-    graphed = use_graphs(graph, dev, "make_streaming_fn")
+    graphed = use_graphs(graph, dev, "make_streaming_fn", collectives=False)
     gates = kernel_gates(model)
     carries: dict = {}
 

@@ -16,11 +16,17 @@ BatchNorm, the two batch-wide loss ratios and the random draws are those of
 the global batch (`parallel/dist.py`), so a W-rank step at B a rank is the
 one-process step at W * B.
 
-On CUDA outside a process group the step is captured as a CUDA graph
-(`graph`, `engine/graphs.py`), as the JAX package jits its step: forward,
-CGT label, losses, backward, clip and the optimizer update are one graph,
+On CUDA the step is captured as a CUDA graph (`graph`,
+`engine/graphs.py`), as the JAX package jits its step: forward, CGT
+label, losses, backward, clip and the optimizer update are one graph,
 replayed once a call, the parameters, Adam's moments and the BatchNorm
-statistics updated in place (JAX's `donate_argnums`).
+statistics updated in place (JAX's `donate_argnums`). Under an NCCL
+process group the graph can hold the step's collectives too, as the JAX
+step over its mesh holds its `psum`s: DDP's gradient all-reduce, the
+global BatchNorm's, the loss denominators' and ZeRO-1's broadcasts. That
+is the default at one rank; at more ranks it is `graph=True`'s opt-in
+(`engine/graphs.py::use_graphs`). Under gloo the data-parallel step runs
+eagerly.
 """
 
 from __future__ import annotations
@@ -91,16 +97,22 @@ class TrainStep:
     `DistributedDataParallel` wrapper, which runs the forward: the clip
     reads the gradients DDP has averaged (the global norm), and the losses
     returned are this rank's shares (`reduce_metrics` gives their mean,
-    the global batch's values).
+    the global batch's values). DDP is built with `static_graph=True`, on
+    a side stream on the card, as PyTorch's recipe for capturing it asks:
+    the same buckets and the same unused parameters every iteration.
 
     With `graphed` the step is a CUDA graph a batch shape (`GraphCache`):
     the metrics it returns are the graph's static outputs, which the next
     step at that shape writes over (read or clone them before), and the
     parameters' `.grad` are the graph's gradients. The first step at a
-    shape runs eagerly, the second captures; the generator is registered
-    with each graph, so that every replay draws what the eager step would.
-    A restore drops the graphs (`graphs.clear()`): it replaces the
-    optimizer's state tensors that they read (`engine/checkpoint.py`).
+    shape runs eagerly, the second captures; under DDP the step captures
+    once DDP has run `graphs.DDP_WARMUP` eager iterations (its first key's
+    12th step). Every rank captures at the same step. The generator is
+    registered with each graph, so that every replay draws what the eager
+    step would. A restore drops the graphs (`graphs.clear()`): it replaces
+    the optimizer's state tensors that they read (`engine/checkpoint.py`);
+    the next step at a shape runs eagerly and the one after captures
+    again.
     """
 
     def __init__(self, model, cfg, device, steps_per_epoch: int, seed: int, optim_cfg=None,
@@ -122,12 +134,20 @@ class TrainStep:
             unused = getattr(model, "branches", scored) != scored
             # Running statistics stay each rank's own (BatchNorm2d keeps
             # them equal), not rank 0's broadcast.
-            ids = None
+            ids, side = None, contextlib.nullcontext()
             if device.type == "cuda":
                 ids = [torch.cuda.current_device() if device.index is None else device.index]
-            self.ddp = DistributedDataParallel(
-                model, device_ids=ids,
-                broadcast_buffers=False, find_unused_parameters=unused)
+                side = torch.cuda.stream(torch.cuda.Stream(device))
+                side.stream.wait_stream(torch.cuda.current_stream(device))
+            # The gradients stay autograd's own tensors, which DDP fills from
+            # its buckets (no `gradient_as_bucket_view`): in a graph they are
+            # the graph's outputs.
+            with side:
+                self.ddp = DistributedDataParallel(
+                    model, device_ids=ids, broadcast_buffers=False,
+                    find_unused_parameters=unused, static_graph=True)
+            if device.type == "cuda":
+                torch.cuda.current_stream(device).wait_stream(side.stream)
         named = [(n, p) for n, p in model.named_parameters() if p.requires_grad]
         labels = param_labels(model)
         self.params = [p for _, p in named]
@@ -136,8 +156,9 @@ class TrainStep:
             labels=[labels[n] for n, _ in named], zero1=zero1)
         self.generator = torch.Generator(device=device).manual_seed(seed)
         self.iteration = 0
-        self.graphed = use_graphs(graph, device, "make_train_step")
-        self.graphs = GraphCache(self._run, "the training step", (self.generator,))
+        self.graphed = use_graphs(graph, device, "make_train_step", collectives=True)
+        self.graphs = GraphCache(self._run, "the training step", (self.generator,),
+                                 collectives=True)
         self._gates = kernel_gates(model)
 
     def __call__(self, batch: dict, noise: torch.Tensor | None = None) -> dict[str, torch.Tensor]:
@@ -180,7 +201,11 @@ class TrainStep:
     @staticmethod
     def reduce_metrics(metrics: dict[str, torch.Tensor]) -> dict[str, torch.Tensor]:
         """The mean of each metric over the ranks (one all-reduce; every
-        rank calls it): the global batch's losses. One process: `metrics`."""
+        rank calls it): the global batch's losses. One process: `metrics`.
+        It reads a captured step's static outputs outside the graph, on the
+        communicator whose collectives the graph replays: NCCL allows that
+        with `NCCL_GRAPH_MIXING_SUPPORT` on, its default, which
+        `parallel.can_capture` checks."""
         if not dist.is_distributed():
             return metrics
         mean = dist.all_reduce_mean(torch.stack([v.double() for v in metrics.values()]))
@@ -212,9 +237,12 @@ def make_train_step(model, cfg, device=None, *, steps_per_epoch: int,
     (`build_optimizer`).
 
     `graph` (the counterpart of JAX's `jit`, `engine/graphs.py`): None
-    captures the step as a CUDA graph on CUDA outside a process group,
-    False runs it eagerly, True captures or raises. A captured step returns
-    its graph's static metrics, which the next step writes over.
+    captures the step as a CUDA graph on CUDA, under a one-rank NCCL
+    process group too (collectives and all, after `graphs.DDP_WARMUP`
+    eager steps), and runs it eagerly under gloo and under NCCL at more
+    ranks; False runs it eagerly; True captures (under NCCL at any number
+    of ranks) or raises. A captured step returns its graph's static
+    metrics, which the next step writes over.
     """
     return TrainStep(model, cfg, resolve_device(device), steps_per_epoch, seed, optim_cfg,
                      zero1, graph)
@@ -226,8 +254,10 @@ class Trainer:
     payload every `log_interval` steps, `checkpoint_fn(step, epoch)` and
     `eval_hook(step, epoch)` after each epoch (the step is the `TrainStep`,
     which holds the model, optimizer, iteration and generator), an
-    `epoch_time` payload, and a `torch.profiler` trace of steps 10-14 of the
-    first epoch in `profile_dir`. Payloads carry the JAX Trainer's keys.
+    `epoch_time` payload, and a `torch.profiler` trace of five steps of the
+    first epoch in `profile_dir`: steps 10-14, or under DDP with a captured
+    step the five after its capture, so that it traces replays only.
+    Payloads carry the JAX Trainer's keys.
     `fit_resilient` is `fit` that restores the newest checkpoint and goes on
     after a runtime or I/O failure.
 
@@ -247,10 +277,11 @@ class Trainer:
     end).
 
     `graph` is `make_train_step`'s: on CUDA the step is a CUDA graph by
-    default. The prefetch thread copies each batch on its side stream; the
-    step waits for that copy's event, then copies the batch into the
-    graph's static inputs on its own stream. The loop reads a step's
-    metrics before the next step writes over them.
+    default, under a one-rank NCCL process group too. The prefetch thread copies
+    each batch on its side stream; the step waits for that copy's event,
+    then copies the batch into the graph's static inputs on its own
+    stream. The loop reads a step's metrics before the next step writes
+    over them.
     """
 
     def __init__(self, model, cfg, train_loader: Iterable, steps_per_epoch: int,
@@ -385,7 +416,7 @@ class Trainer:
                 start_epoch = restore_checkpoint(work_dir, self.train_step)
 
     def fit(self, total_epochs: int, start_epoch: int = 0) -> TrainStep:
-        prof = None
+        prof, profiled = None, self._profiled_steps()
         for epoch in range(start_epoch, total_epochs):
             t_epoch = time.time()
             # Epoch-seeded reshuffle, explicit so that a resumed run sees the
@@ -401,11 +432,11 @@ class Trainer:
                 waits.append(time.perf_counter() - t0)
                 if batch is None:
                     break
-                if self.profile_dir and epoch == start_epoch and i == _PROFILE_STEPS[0]:
+                if self.profile_dir and epoch == start_epoch and i == profiled[0]:
                     prof = self._start_profile()
                 metrics = self.train_step(batch)
                 i += 1
-                if prof is not None and i == _PROFILE_STEPS[1]:
+                if prof is not None and i == profiled[1]:
                     prof = self._stop_profile(prof)
                 if i % self.log_interval == 0:
                     metrics = self.train_step.reduce_metrics(metrics)
@@ -424,6 +455,15 @@ class Trainer:
                          "seconds": time.time() - t_epoch})
         return self.train_step
 
+    def _profiled_steps(self) -> tuple[int, int]:
+        """The first step the profiler traces and the step after its last:
+        10-14, or under DDP the five after the capture (`graphs.DDP_WARMUP`
+        warm-ups, then the capture), replays only."""
+        first, end = _PROFILE_STEPS
+        if getattr(self.train_step, "graphed", False):  # a TrainStep, not a stand-in
+            first = max(first, self.train_step.graphs.warmup + 1)
+        return first, first + end - _PROFILE_STEPS[0]
+
     def _start_profile(self):
         from torch.profiler import ProfilerActivity, profile
 
@@ -439,7 +479,7 @@ class Trainer:
         prof.stop()
         os.makedirs(self.profile_dir, exist_ok=True)
         rank = f"_rank{dist.rank()}" if dist.world_size() > 1 else ""
+        first, last = self._profiled_steps()
         prof.export_chrome_trace(os.path.join(
-            self.profile_dir, "steps_%d_%d%s.trace.json" % (_PROFILE_STEPS[0],
-                                                            _PROFILE_STEPS[1] - 1, rank)))
+            self.profile_dir, "steps_%d_%d%s.trace.json" % (first, last - 1, rank)))
         return None

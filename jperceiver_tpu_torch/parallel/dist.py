@@ -13,11 +13,20 @@ batch-wide ratios of the losses) or from a global draw of which each rank
 keeps its rows (`rank_rows`: dropout, the automask noise).
 
 Without a process group every helper is the single-process identity.
+
+The collectives here are issued on the caller's current stream (NCCL's
+own stream waits on it and it on NCCL's), so inside a CUDA graph capture
+they are captured with the step, and every rank issues them in the order
+its forward and backward reach them, which is the same on every rank.
+Whether a process group's collectives can be captured at all is
+`can_capture`'s question: NCCL's can (on a card, from NCCL 2.9.6 on),
+gloo's run on the host and cannot.
 """
 
 from __future__ import annotations
 
 import datetime
+import hashlib
 import os
 
 import torch
@@ -35,6 +44,41 @@ def rank() -> int:
 
 def world_size() -> int:
     return dist.get_world_size() if is_distributed() else 1
+
+
+def backend() -> str | None:
+    """The process group's backend ("nccl", "gloo"), or None without one."""
+    return str(dist.get_backend()) if is_distributed() else None
+
+
+# NCCL captures collectives into CUDA graphs from 2.9.6 on
+# (`torch.cuda.graphs`' notes on DistributedDataParallel).
+NCCL_CAPTURE_MIN = (2, 9, 6)
+
+
+def can_capture() -> bool:
+    """Whether the process group's collectives can be captured in a CUDA
+    graph: true only for NCCL on a card. Raises, naming the versions, where
+    the group is NCCL but this PyTorch's NCCL is older than
+    `NCCL_CAPTURE_MIN`, or where `NCCL_GRAPH_MIXING_SUPPORT` is 0: a
+    captured step replays its collectives on the communicator that the
+    uncaptured ones (`TrainStep.reduce_metrics`, the eval hook's sums,
+    checkpoints) use too, which NCCL allows only with graph mixing on (its
+    default)."""
+    if backend() != "nccl" or not torch.cuda.is_available():
+        return False
+    version = tuple(torch.cuda.nccl.version())
+    if version < NCCL_CAPTURE_MIN:
+        raise RuntimeError(
+            f"torch {torch.__version__} (CUDA {torch.version.cuda}) is built with NCCL "
+            f"{'.'.join(map(str, version))}, which cannot capture collectives in a CUDA "
+            f"graph (NCCL {'.'.join(map(str, NCCL_CAPTURE_MIN))} or later can); pass "
+            "graph=False")
+    if os.environ.get("NCCL_GRAPH_MIXING_SUPPORT", "1") == "0":
+        raise RuntimeError("NCCL_GRAPH_MIXING_SUPPORT=0: a captured data-parallel step shares "
+                           "its communicator with uncaptured collectives; unset it or pass "
+                           "graph=False")
+    return True
 
 
 def local_rank() -> int:
@@ -105,6 +149,20 @@ def rank_rows(draw, local_shape, dim: int = 0) -> torch.Tensor:
     b = shape[dim]
     shape[dim] = b * w
     return draw(tuple(shape)).narrow(dim, rank() * b, b)
+
+
+def check_same_on_every_rank(value, what: str) -> None:
+    """Raises unless every rank passes the same `value` (its `repr`, hashed):
+    one small all-reduce, which every rank must reach. Nothing without a
+    process group."""
+    if not is_distributed():
+        return
+    h = int.from_bytes(hashlib.sha256(repr(value).encode()).digest()[:7], "little")
+    dev = torch.device("cuda", torch.cuda.current_device()) if backend() == "nccl" else None
+    t = torch.tensor([h, -h], dtype=torch.int64, device=dev)
+    dist.all_reduce(t, op=dist.ReduceOp.MAX)
+    if (int(t[0]), -int(t[1])) != (h, h):
+        raise RuntimeError(f"{what}: rank {rank()} has {value!r}, another rank has another")
 
 
 def barrier() -> None:

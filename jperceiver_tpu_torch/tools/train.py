@@ -11,8 +11,12 @@ newest checkpoint there (model, optimizer, iteration, generator) and goes
 on from its epoch; `--load_from` / `--finetune` load weights only, the
 second where names and shapes match. Runs on the card unless `--device cpu`.
 On the card the training step and the eval hook's forward are CUDA graphs
-(`engine/graphs.py`) unless `--graph off`; `--graph on` raises where a step
-cannot be captured (under a process group, on the CPU).
+(`engine/graphs.py`) unless `--graph off`, under `--launcher pytorch` on
+one NCCL rank too (the step's collectives in its graph, after 11 eager
+warm-up steps); under gloo, and on NCCL at more ranks, the step runs
+eagerly, and `--graph on` captures it on NCCL at any number of ranks.
+`--graph on` raises where a step cannot be captured (under gloo, on the
+CPU).
 
 Data parallel (the JAX CLI's `--multihost`): one process per card, started
 by torchrun, with `--launcher pytorch`:
@@ -52,7 +56,8 @@ def parse_args(argv=None):
                    help="nccl or gloo (default: nccl on the card, gloo on the CPU)")
     p.add_argument("--graph", choices=("auto", "on", "off"), default="auto",
                    help="CUDA graphs of the step and the eval forward: auto captures on "
-                        "the card outside a process group")
+                        "the card (the step under one NCCL rank, not under gloo or more "
+                        "NCCL ranks, which 'on' captures)")
     return p.parse_args(argv)
 
 

@@ -299,12 +299,17 @@ def test_graph_true_raises_on_the_cpu_and_under_a_process_group(monkeypatch):
     with pytest.raises(ValueError, match="graph=True"):
         make_streaming_fn(model, device="cpu", graph=True)
     cuda = torch.device("cuda")
-    assert graphs.use_graphs(None, cuda, "x") and not graphs.use_graphs(False, cuda, "x")
-    assert not graphs.use_graphs(None, torch.device("cpu"), "x")
+    use = graphs.use_graphs
+    assert use(None, cuda, "x", collectives=True) and not use(False, cuda, "x", collectives=True)
+    assert not use(None, torch.device("cpu"), "x", collectives=True)
+    # A process group whose collectives cannot be captured (gloo's):
+    # `tests/test_torch_graph_ddp.py` holds each backend's decisions.
     monkeypatch.setattr(graphs.dist, "is_distributed", lambda: True)
-    assert not graphs.use_graphs(None, cuda, "x")
+    monkeypatch.setattr(graphs.dist, "can_capture", lambda: False)
+    monkeypatch.setattr(graphs.dist, "backend", lambda: "gloo")
+    assert not use(None, cuda, "x", collectives=True)
     with pytest.raises(ValueError, match="process group"):
-        graphs.use_graphs(True, cuda, "x")
+        use(True, cuda, "x", collectives=True)
 
 
 class _StandInGraph:
@@ -362,7 +367,7 @@ def test_launch_counts_across_capture_and_replays(monkeypatch):
         raise RuntimeError("operation not permitted when stream is capturing")
 
     bad = graphs.GraphCache(failing, "the failing body")
-    bad.entries["k"] = None  # warmed up
+    bad.entries["k"], bad.eager_calls = None, 1  # warmed up
     before = kernels.launch_counts()
     with pytest.raises(RuntimeError, match="capture of the failing body failed"):
         bad.run("k", {"x": x0})

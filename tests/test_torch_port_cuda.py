@@ -642,3 +642,53 @@ def test_streaming_graphs_match_eager(cuda):
             want, got = eager(frames), captured(frames)
             assert all(torch.equal(got[k], want[k]) for k in want)
         assert captured.graphs.captures == 2
+
+
+@pytest.mark.parametrize("world", [1, 2, 4])
+def test_captured_ddp_step_matches_eager_bit_for_bit(cuda, world, tmp_path):
+    """`world` NCCL ranks, one a card (`torch_ddp_worker.py nccl_graph`),
+    at 128^2, B = 1 a rank: for bn_groups 1, the world size and ZeRO-1,
+    the captured data-parallel step (graph=None at one rank, graph=True at
+    more; 11 eager warm-ups, the capture, two replays, the LR milestone
+    between them) against the eager one from the
+    same weights and batches: every step's metrics, gradients and weights,
+    then the model, optimizer state and generator, bit for bit; each
+    step's launches the eager step's."""
+    import os
+    import socket
+    import subprocess
+    import sys
+
+    from jperceiver_tpu_torch.data import synthetic_batch
+
+    if torch.cuda.device_count() < world:
+        pytest.skip(f"needs {world} CUDA devices")
+    model = _graph_model(branches="road")
+    torch.save({"weights": {k: v.cpu() for k, v in model.state_dict().items()},
+                "batch": synthetic_batch(world, 128, 128, 32, seed=5)},
+               str(tmp_path / "inputs.pt"))
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    worker = os.path.join(os.path.dirname(os.path.abspath(__file__)), "torch_ddp_worker.py")
+    procs = [subprocess.Popen(
+        [sys.executable, worker, "nccl_graph", str(tmp_path)], text=True,
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        env=dict(os.environ, RANK=str(r), WORLD_SIZE=str(world), LOCAL_RANK=str(r),
+                 MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port), OMP_NUM_THREADS="1"))
+        for r in range(world)]
+    try:
+        outs = [p.communicate(timeout=600)[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+    for p, out in zip(procs, outs):
+        assert p.returncode == 0, out[-3000:]
+    for r in range(world):
+        res = torch.load(str(tmp_path / f"nccl_graph{r}.pt"), weights_only=False)
+        for name, got in res.items():
+            assert got["graphed"] and got["captures"] == 1, (r, name, got)
+            assert got["differing"] == [], (r, name, got["differing"])
+            assert got["counts_equal"], (r, name)
+            assert got["counts"]["reproj_fwd"] == got["counts"]["reproj_bwd"] == 1, got

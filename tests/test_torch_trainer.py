@@ -16,6 +16,7 @@ dict's keys (read with `jax.eval_shape`, no compile).
 
 import json
 import os
+import types
 
 import jax
 import jax.numpy as jnp
@@ -204,6 +205,30 @@ def test_fit_traces_steps_10_to_14(idle_model, tmp_path):
     assert len(ran) == 32
     trace = tmp_path / "steps_10_14.trace.json"
     assert trace.is_file() and json.loads(trace.read_text())["traceEvents"]
+
+
+def test_fit_traces_replays_only_after_a_ddp_capture(idle_model, tmp_path):
+    """A step captured under DDP warms up `DDP_WARMUP` times and captures
+    at the next step: the five traced steps are the replays after it."""
+    from jperceiver_tpu_torch.engine.graphs import DDP_WARMUP
+
+    loader = [{"color": np.zeros((1,))}] * 20
+    trainer = Trainer(idle_model, _cfg(), loader, steps_per_epoch=20, device="cpu",
+                      profile_dir=str(tmp_path))
+    ran = []
+
+    class _CapturedUnderDDP:
+        graphed = True
+        graphs = types.SimpleNamespace(warmup=DDP_WARMUP)
+
+        def __call__(self, batch):
+            ran.append(len(ran))
+            return {"loss": torch.zeros(())}
+
+    trainer.train_step = _CapturedUnderDDP()
+    trainer.fit(1)
+    assert len(ran) == 20
+    assert [p.name for p in tmp_path.iterdir()] == ["steps_12_16.trace.json"]
 
 
 def test_trainer_refuses_without_cuda(idle_model, monkeypatch):

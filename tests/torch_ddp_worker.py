@@ -14,7 +14,17 @@ hold to `<dir>/rank<r>.pt` or `<dir>/cli<r>.pt`:
            same steps and eval in one process at the global batch and
            compares;
   cli:     `tools.train.main(argv)` on its rank for each run of
-           `inputs.pt`, recording the files this rank wrote.
+           `inputs.pt`, recording the files this rank wrote;
+  graph:   joins a gloo group and runs two fp32 steps of the 128^2 step
+           with DDP built without `static_graph` and as the step builds
+           it (`static_graph=True`), from the same weights and batches;
+           the step's graph decisions under gloo; the capture's key check
+           with the same and with different keys;
+  nccl_graph: (on cards, one a rank) joins an NCCL group and runs the
+           128^2 step eagerly and captured (the warm-ups, the capture, two
+           replays) for bn_groups 1 and the world size and with ZeRO-1,
+           recording whether every step's metrics, gradients and weights
+           and the final state agree bit for bit, and the launches.
 
 Imports only torch and the port, so a process starts in seconds.
 """
@@ -63,7 +73,7 @@ def _rows(batch: dict, dtype) -> dict:
     """This rank's rows of the global batch, floating arrays in `dtype`."""
     from jperceiver_tpu_torch.parallel import rank, world_size
 
-    b = GLOBAL_B // world_size()
+    b = len(batch["color_aug"]) // world_size()
     sl = slice(rank() * b, (rank() + 1) * b)
     return {k: (v[sl].astype(dtype) if np.issubdtype(v.dtype, np.floating) else v[sl])
             for k, v in batch.items()}
@@ -229,6 +239,122 @@ def _digest(state: dict) -> str:
     return h.hexdigest()
 
 
+def _graph_cpu(inp: dict) -> dict:
+    """The `graph` role: DDP without `static_graph` against the step's
+    (`static_graph=True`), the graph decisions under gloo, the capture's
+    key check."""
+    from jperceiver_tpu_torch.engine import graphs, make_train_step
+    from jperceiver_tpu_torch.parallel import rank
+
+    local = _rows(inp["batch"], np.float32)
+    weights = {k: v.float() if v.is_floating_point() else v for k, v in inp["weights"].items()}
+    runs = {}
+    ddp_cls = torch.nn.parallel.DistributedDataParallel
+    for name in ("dynamic", "static"):
+        if name == "dynamic":  # DistributedDataParallel without static_graph
+            torch.nn.parallel.DistributedDataParallel = (
+                lambda *a, static_graph, **k: ddp_cls(*a, **k))
+        try:
+            step = make_train_step(_model(weights, torch.float32), FLAGSHIP, device="cpu",
+                                   steps_per_epoch=1000)
+        finally:
+            torch.nn.parallel.DistributedDataParallel = ddp_cls
+        seen = []
+        for _ in range(2):
+            m = step.reduce_metrics(step(local))
+            seen.append([m[k].clone() for k in sorted(m)] + [p.grad.clone() for p in step.params])
+        runs[name] = {"static_graph": step.ddp.static_graph, "graphed": step.graphed,
+                      "warmup": step.graphs.warmup,
+                      "steps": seen + [[t.clone() for t in step.model.state_dict().values()]]}
+    dynamic, static = runs["dynamic"], runs["static"]
+    same = all(torch.equal(a, b) for x, y in zip(dynamic["steps"], static["steps"], strict=True)
+               for a, b in zip(x, y, strict=True))
+    try:  # the step's decision on a card under this gloo group
+        graphs.use_graphs(True, torch.device("cuda"), "make_train_step", collectives=True)
+        refused = ""
+    except ValueError as exc:
+        refused = str(exc)
+    decisions = {"train_none_on_cuda": graphs.use_graphs(None, torch.device("cuda"), "t",
+                                                         collectives=True),
+                 "eval_none_on_cuda": graphs.use_graphs(None, torch.device("cuda"), "e",
+                                                        collectives=False)}
+    # The capture's key check: the same key on both ranks passes (a stand-in
+    # capture), another key on rank 1 raises on both ranks.
+    def stand_in_capture(copied, held):
+        raise AssertionError("captured")
+
+    checks = {}
+    for name, key in (("same", "k"), ("differ", f"k{rank()}")):
+        cache = graphs.GraphCache(lambda x: x + 1, "the test body", collectives=True)
+        cache._capture = stand_in_capture
+        x = torch.zeros(2)
+        for _ in range(cache.warmup):  # DDP_WARMUP under a process group
+            cache.run(key, {"x": x})
+        try:
+            cache.run(key, {"x": x})
+        except AssertionError:
+            checks[name] = "captured"
+        except RuntimeError as exc:
+            checks[name] = str(exc)
+    return {"same": same, "dynamic_static_graph": dynamic["static_graph"],
+            "static_graph": static["static_graph"], "graphed": static["graphed"],
+            "warmup": static["warmup"], "graph_true_refused": refused,
+            "decisions": decisions, "key_checks": checks}
+
+
+def _nccl_graph(inp: dict) -> dict:
+    """The `nccl_graph` role, on this rank's card: for bn_groups 1, the
+    world size and ZeRO-1, the eager step and the captured one from the
+    same weights over the same batches (the LR milestone between the first
+    and second replay), and whether every step's metrics, gradients and
+    weights, then the model, optimizer state and generator, agree bit for
+    bit; each step's launches."""
+    from jperceiver_tpu_torch.engine import make_train_step
+    from jperceiver_tpu_torch.engine.graphs import DDP_WARMUP
+    from jperceiver_tpu_torch.ops.cuda import launch_counts, reset_launch_counts
+    from jperceiver_tpu_torch.parallel import world_size
+
+    dev = torch.device("cuda", torch.cuda.current_device())
+    n = DDP_WARMUP + 3
+    local = _rows(inp["batch"], np.float32)
+    weights = {k: v.float() if v.is_floating_point() else v for k, v in inp["weights"].items()}
+    # The milestone at iteration DDP_WARMUP + 2: epoch 1 of that many steps.
+    cfg = dict(FLAGSHIP, lr_config=dict(policy="step", warmup=None, step=[1]))
+    out = {}
+    for name, keys, zero1 in (("bn1", dict(bn_groups=1), False),
+                              ("bnW", dict(bn_groups=world_size()), False),
+                              ("zero1", dict(bn_groups=1), True)):
+        runs = {}
+        # The default at one rank, the opt-in at more (`use_graphs`).
+        for graph in (False, None if world_size() == 1 else True):
+            step = make_train_step(_model(weights, torch.float32), dict(cfg, **keys), dev,
+                                   steps_per_epoch=DDP_WARMUP + 2, seed=3, zero1=zero1,
+                                   graph=graph)
+            seen, counts = [], []
+            for _ in range(n):
+                reset_launch_counts()
+                m = step(local)
+                torch.cuda.synchronize()
+                counts.append(launch_counts())
+                seen.append([m[k].clone() for k in sorted(m)]
+                            + [p.grad.clone() for p in step.params]
+                            + [p.detach().clone() for p in step.params])
+            opt = getattr(step.optimizer, "optim", step.optimizer)
+            seen.append([t.clone() for t in step.model.state_dict().values()]
+                        + [v.clone() for st in opt.state.values() for v in st.values()]
+                        + [step.generator.get_state()])
+            runs[graph] = {"seen": seen, "counts": counts, "graphed": step.graphed,
+                           "captures": step.graphs.captures}
+            del step
+        eager, capt = runs.pop(False), runs.popitem()[1]
+        out[name] = {"differing": [i for i, (a, b) in enumerate(zip(eager["seen"], capt["seen"]))
+                                   if not all(torch.equal(x, y) for x, y in zip(a, b))],
+                     "graphed": capt["graphed"], "captures": capt["captures"],
+                     "counts_equal": eager["counts"] == capt["counts"],
+                     "counts": capt["counts"][-1]}
+    return out
+
+
 def main(role: str, d: str) -> None:
     """A rank: the two-rank steps, ZeRO-1, the eval hook and the group
     check; then, the process group gone, rank 0 runs the same steps and
@@ -241,6 +367,18 @@ def main(role: str, d: str) -> None:
         torch.save(out, os.path.join(d, f"cli{out[0]['rank']}.pt"))
         return
     from jperceiver_tpu_torch.parallel import init_distributed, rank
+
+    if role in ("graph", "nccl_graph"):
+        if role == "graph":
+            init_distributed("gloo", timeout_s=300, device="cpu")
+            out = _graph_cpu(inp)
+        else:
+            init_distributed("nccl", timeout_s=300)
+            out = _nccl_graph(inp)
+        r = rank()
+        torch.distributed.destroy_process_group()
+        torch.save(out, os.path.join(d, f"{role}{r}.pt"))
+        return
 
     init_distributed("gloo", timeout_s=300, device="cpu")
     r = rank()
