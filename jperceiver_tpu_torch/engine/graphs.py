@@ -39,18 +39,23 @@ What a replay returns are the graph's static outputs: the next replay at
 the same key writes over them. Read or clone them before that.
 
 A capture that fails raises: nothing runs the body eagerly instead.
+
+Each warm-up and each capture is timed (`tracing.timed`: `graph.eager`,
+`graph.capture`); the copy into the static inputs and the replay's launch
+are spans (`graph.copy_in`, `graph.launch`, the latter holding the host
+while the card drains the replay before).
 """
 
 from __future__ import annotations
 
 import dataclasses
-import time
 from typing import Any, Callable
 
 import torch
 
 from .. import parallel as dist
 from ..ops.cuda import GraphLaunches
+from ..tracing import span, timed
 
 
 # PyTorch's recipe for capturing DDP: at least 11 eager iterations first.
@@ -122,7 +127,10 @@ class GraphCache:
     warms up once. A call runs eagerly while its key has had no eager call
     or while the cache has made fewer than `warmup` eager calls in all,
     whatever their keys (under DDP: DDP's own eager iterations); the next
-    call at that key captures."""
+    call at that key captures.
+
+    `eager_calls` and `captures` count the calls of each kind, `capture_s`
+    each capture's seconds."""
 
     def __init__(self, body: Callable, name: str, generators=(), collectives: bool = False):
         self.body = body
@@ -146,16 +154,18 @@ class GraphCache:
         if key not in self.entries or (entry is None and self.eager_calls < self.warmup):
             self.entries[key] = None
             self.eager_calls += 1
-            return self._eager({**copied, **held})
+            with timed("graph.eager"):
+                return self._eager({**copied, **held})
         if entry is None:
             if self.collectives:
                 dist.check_same_on_every_rank(key, f"the capture of {self.name}")
             entry = self.entries[key] = self._capture(copied, held)
         else:
-            with torch.no_grad():
+            with span("graph.copy_in"), torch.no_grad():
                 for k, t in entry.inputs.items():
                     t.copy_(copied[k])
-        entry.graph.replay()
+        with span("graph.launch"):
+            entry.graph.replay()
         entry.launches.replayed()
         return entry.outputs
 
@@ -173,22 +183,23 @@ class GraphCache:
         return out
 
     def _capture(self, copied: dict, held: dict) -> _Captured:
-        t0 = time.perf_counter()
-        static = {k: None if v is None else v.detach().clone() for k, v in copied.items()}
-        graph = torch.cuda.CUDAGraph()
-        _register_generators(graph, self.generators)
-        launches = GraphLaunches()
-        try:
-            # thread_local: the prefetch thread may allocate pinned memory
-            # and copy on its own stream while this thread captures, and
-            # NCCL's watchdog queries its events.
-            with launches.capture(), torch.cuda.graph(graph, capture_error_mode="thread_local"):
-                outputs = self.body(**static, **held)
-        except Exception as exc:
-            raise RuntimeError(f"CUDA graph capture of {self.name} failed: {exc} "
-                               "(pass graph=False to run it eagerly)") from exc
+        with timed("graph.capture") as event:
+            static = {k: None if v is None else v.detach().clone() for k, v in copied.items()}
+            graph = torch.cuda.CUDAGraph()
+            _register_generators(graph, self.generators)
+            launches = GraphLaunches()
+            try:
+                # thread_local: the prefetch thread may allocate pinned memory
+                # and copy on its own stream while this thread captures, and
+                # NCCL's watchdog queries its events.
+                with launches.capture(), torch.cuda.graph(graph,
+                                                          capture_error_mode="thread_local"):
+                    outputs = self.body(**static, **held)
+            except Exception as exc:
+                raise RuntimeError(f"CUDA graph capture of {self.name} failed: {exc} "
+                                   "(pass graph=False to run it eagerly)") from exc
         self.captures += 1
-        self.capture_s.append(time.perf_counter() - t0)
+        self.capture_s.append(event.seconds)
         return _Captured(graph, {k: v for k, v in static.items() if v is not None},
                          outputs, launches)
 

@@ -10,6 +10,7 @@ import torch
 
 from .._device import resolve_device
 from ..models.common import kernel_gates, set_kernels
+from ..tracing import mark, span
 from .graphs import GraphCache, tensor_key, use_graphs
 
 
@@ -42,6 +43,10 @@ def make_eval_step(model, cfg=None, device=None, graph: bool | None = None
     next call at that shape writes over.
     The graph reads the model's parameters and statistics where they are,
     so it sees every training step between calls.
+
+    A call is the span `eval_step` with `eval_step.upload` (the frames to
+    the device) and the graph's spans inside; device marks `eval` and
+    `end` bound the forward (`tracing.py`).
     """
     dev = resolve_device(device)
     model = model.to(dev).eval()
@@ -51,18 +56,23 @@ def make_eval_step(model, cfg=None, device=None, graph: bool | None = None
 
     def forward(color_aug):
         with torch.inference_mode():
-            return model({"color_aug": color_aug}, train=False, with_pose=True)
+            mark("eval", dev)
+            out = model({"color_aug": color_aug}, train=False, with_pose=True)
+            mark("end", dev)
+            return out
 
     graphs = GraphCache(forward, "the eval step")
 
     def step(batch: dict) -> dict[str, torch.Tensor]:
-        color_aug = torch.as_tensor(batch["color_aug"], dtype=torch.float32,
-                                    device=dev)
-        if not graphed:
-            return forward(color_aug)
-        model.eval()  # the mode the eager forward leaves
-        inputs = {"color_aug": color_aug}
-        return graphs.run((tensor_key(inputs), gates()), inputs)
+        with span("eval_step"):
+            with span("eval_step.upload"):
+                color_aug = torch.as_tensor(batch["color_aug"], dtype=torch.float32,
+                                            device=dev)
+            if not graphed:
+                return forward(color_aug)
+            model.eval()  # the mode the eager forward leaves
+            inputs = {"color_aug": color_aug}
+            return graphs.run((tensor_key(inputs), gates()), inputs)
 
     step.graphs = graphs
     return step

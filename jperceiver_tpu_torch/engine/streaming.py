@@ -18,6 +18,7 @@ import torch
 from .._device import resolve_device
 from ..models.common import kernel_gates
 from ..ops.geometry import se3_compose, se3_inverse
+from ..tracing import mark, span
 from .graphs import GraphCache, tensor_key, use_graphs
 
 
@@ -37,6 +38,9 @@ def make_streaming_fn(model, chunk: int = 8, device=None, graph: bool | None = N
     lives in tensors that every chunk's graph reads and writes in place, as
     the scan carries it. The outputs `run` returns are its own, not a
     graph's.
+
+    A call is the span `stream`; device marks `chunk` and `end` bound each
+    chunk's body (`tracing.py`).
     """
     if chunk < 1:
         raise ValueError(f"chunk must be >= 1, got {chunk}")
@@ -50,6 +54,7 @@ def make_streaming_fn(model, chunk: int = 8, device=None, graph: bool | None = N
         """One chunk: the batched forward, the pose of each frame against
         the one before, and the global pose chained frame by frame; the
         carry updated in place."""
+        mark("chunk", seg.device)
         prevs = torch.cat([prev, seg[:-1]], 0)
         out = model({"color_aug": seg[:, None]}, with_pose=False)
         poses = model.pose_between(prevs, seg)
@@ -63,13 +68,14 @@ def make_streaming_fn(model, chunk: int = 8, device=None, graph: bool | None = N
                 ys[key] = out[key]
         prev.copy_(seg[-1:])
         gpose.copy_(g)
+        mark("end", seg.device)
         return ys
 
     graphs = GraphCache(step, "a streaming chunk")
 
     def run(frames, init_pose=None) -> dict[str, torch.Tensor]:
         model.eval()
-        with torch.inference_mode():
+        with span("stream"), torch.inference_mode():
             frames = torch.as_tensor(frames, dtype=torch.float32, device=dev)
             size = tuple(frames.shape[1:])
             if size not in carries:

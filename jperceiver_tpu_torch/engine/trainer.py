@@ -44,6 +44,7 @@ from .. import parallel as dist
 from .._device import resolve_device
 from ..losses.multitask import compute_losses, total_loss
 from ..models.common import kernel_gates, set_bn_groups, set_kernels
+from ..tracing import mark, span, timed
 from .graphs import GraphCache, tensor_key, use_graphs
 from .infer import conv_gates_from_cfg
 from .optim import build_optimizer, clip_by_global_norm_, global_norm, param_labels, set_lr
@@ -162,37 +163,52 @@ class TrainStep:
         self._gates = kernel_gates(model)
 
     def __call__(self, batch: dict, noise: torch.Tensor | None = None) -> dict[str, torch.Tensor]:
-        batch = batch_to(batch, self.device)
-        # The learning rate on the device, filled before the step (or its
-        # replay) reads it.
-        set_lr(self.optimizer, self.schedule, self.iteration)
-        if self.graphed:
-            self.model.train()  # the mode the eager forward leaves
-            inputs = dict(batch, noise=noise)
-            metrics, grads = self.graphs.run((tensor_key(inputs), self._gates()), inputs)
-            for p, g in zip(self.params, grads):
-                p.grad = g
-        else:
-            metrics, _ = self._run(noise, **batch)
-        self.iteration += 1
+        with span("train_step"):
+            with span("train_step.inputs"):
+                batch = batch_to(batch, self.device)
+                # The learning rate on the device, filled before the step (or
+                # its replay) reads it.
+                set_lr(self.optimizer, self.schedule, self.iteration)
+                if self.graphed:
+                    self.model.train()  # the mode the eager forward leaves
+                    inputs = dict(batch, noise=noise)
+                    key = (tensor_key(inputs), self._gates())
+            if self.graphed:
+                metrics, grads = self.graphs.run(key, inputs)
+                with span("train_step.grads"):
+                    for p, g in zip(self.params, grads):
+                        p.grad = g
+            else:
+                metrics, _ = self._run(noise, **batch)
+            self.iteration += 1
         return metrics
 
     def _run(self, noise=None, **batch):
         """The step's device work, what a graph holds: the forward, the
         losses, the backward, the clip and the update. Returns the metrics
-        and each parameter's gradient."""
+        and each parameter's gradient.
+
+        Device phase marks (`tracing.mark`) bound its phases: `forward`,
+        `losses` (with `cgt`, the CGT label, inside, `losses/multitask.py`),
+        `backward` (under remat with the recomputed forward), `update` (the
+        global norm, the clip and the optimizer), `end`."""
         self.optimizer.zero_grad(set_to_none=True)
         with deterministic_cudnn():
+            mark("forward", self.device)
             outputs = self.ddp(batch, train=True, generator=self.generator)
+            mark("losses", self.device)
             losses = compute_losses(outputs, batch, self.cfg, noise=noise,
                                     generator=self.generator)
             loss = total_loss(losses)
+            mark("backward", self.device)
             loss.backward()
+        mark("update", self.device)
         grads = [p.grad for p in self.params if p.grad is not None]
         norm = global_norm(grads)
         if self.clip is not None:
             clip_by_global_norm_(grads, norm, self.clip)
         self.optimizer.step()
+        mark("end", self.device)
         metrics = {k: v.detach() for k, v in losses.items()}
         metrics["loss"] = loss.detach()
         metrics["grad_norm"] = norm
@@ -274,7 +290,11 @@ class Trainer:
 
     `data_wait_s` holds, per epoch, the host seconds the loop waited for
     each batch from the prefetch queue (the last entry: the wait for its
-    end).
+    end), each timed as `fit.data_wait` (`tracing.py`). The loop's log
+    payloads, checkpoints and eval hook are spans (`fit.log`,
+    `fit.checkpoint`, `fit.eval`), and so are the prefetch thread's load
+    and upload of each batch (`prefetch.load`, `prefetch.upload`): a
+    profiler trace (`profile_dir`) shows them beside the steps' own.
 
     `graph` is `make_train_step`'s: on CUDA the step is a CUDA graph by
     default, under a one-rank NCCL process group too. The prefetch thread copies
@@ -335,10 +355,12 @@ class Trainer:
             try:
                 for _ in range(n_steps):
                     try:
-                        batch = next(it)
+                        with span("prefetch.load"):
+                            batch = next(it)
                     except StopIteration:
                         break
-                    item = self._to_device(batch, stream)
+                    with span("prefetch.upload"):
+                        item = self._to_device(batch, stream)
                     while not stop.is_set():
                         try:
                             out.put(item, timeout=0.1)
@@ -427,9 +449,9 @@ class Trainer:
             waits, i = [], 0
             self.data_wait_s.append(waits)
             while True:
-                t0 = time.perf_counter()
-                batch = next(batches, None)
-                waits.append(time.perf_counter() - t0)
+                with timed("fit.data_wait") as wait:
+                    batch = next(batches, None)
+                waits.append(wait.seconds)
                 if batch is None:
                     break
                 if self.profile_dir and epoch == start_epoch and i == profiled[0]:
@@ -439,16 +461,19 @@ class Trainer:
                 if prof is not None and i == profiled[1]:
                     prof = self._stop_profile(prof)
                 if i % self.log_interval == 0:
-                    metrics = self.train_step.reduce_metrics(metrics)
-                    self.log_fn({"mode": "train", "epoch": epoch + 1, "iter": i,
-                                 **{str(k): float(v) for k, v in metrics.items()}})
+                    with span("fit.log"):
+                        metrics = self.train_step.reduce_metrics(metrics)
+                        self.log_fn({"mode": "train", "epoch": epoch + 1, "iter": i,
+                                     **{str(k): float(v) for k, v in metrics.items()}})
             if prof is not None:
                 prof = self._stop_profile(prof)
             self._sync()
             if self.checkpoint_fn is not None:
-                self.checkpoint_fn(self.train_step, epoch + 1)
+                with span("fit.checkpoint"):
+                    self.checkpoint_fn(self.train_step, epoch + 1)
             if self.eval_hook is not None:
-                eval_metrics = self.eval_hook(self.train_step, epoch + 1)
+                with span("fit.eval"):
+                    eval_metrics = self.eval_hook(self.train_step, epoch + 1)
                 if eval_metrics:
                     self.log_fn({"mode": "val", "epoch": epoch + 1, **eval_metrics})
             self.log_fn({"mode": "epoch_time", "epoch": epoch + 1,
@@ -465,12 +490,14 @@ class Trainer:
         return first, first + end - _PROFILE_STEPS[0]
 
     def _start_profile(self):
-        from torch.profiler import ProfilerActivity, profile
+        from torch.profiler import ProfilerActivity, _ExperimentalConfig, profile
 
         acts = [ProfilerActivity.CPU]
         if self.device.type == "cuda":
             acts.append(ProfilerActivity.CUDA)
-        prof = profile(activities=acts)
+        # Every thread: the prefetch thread's spans too.
+        prof = profile(activities=acts,
+                       experimental_config=_ExperimentalConfig(profile_all_threads=True))
         prof.start()
         return prof
 

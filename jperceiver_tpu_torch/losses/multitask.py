@@ -27,6 +27,7 @@ from ..ops.photometric import reprojection_loss
 from ..ops.sampling import grid_sample_multi, resize_area, resize_bilinear
 from ..ops.seg_losses import topview_seg_loss
 from ..ops.smoothness import edge_aware_smoothness
+from ..tracing import mark
 from .cgt import cgt_scale_label
 
 # Garg/Eigen crop for full-resolution (375, 1242) KITTI raw.
@@ -137,10 +138,12 @@ def compute_losses(outputs: Mapping[str, torch.Tensor],
         raise ValueError(f"unknown model type {model_type}")
     layout = {"static": batch.get("bev_static"), "dynamic": None,
               "both": batch.get("bev_both")}[cgt_kind]
+    mark("cgt", dev)  # the CGT label's phase of the step (`tracing.py`)
     scale_label = cgt_scale_label(
         layout, batch["odometry_K"][:, :3, :3], batch["Tr_cam2_velo"],
         kind=cgt_kind, split=cfg.get("split", "odometry"),
         occ_map_size=cfg.get("occ_map_size"), out_hw=full_hw)
+    mark("losses", dev)
 
     # ---- per-scale depth losses
     target = batch["color"][:, 0]

@@ -10,11 +10,13 @@ K5 with its backward kernel (`maxpool5x5`). The stem pool
 (`maxpool3x3s2`) keeps `F.max_pool2d` as its forward; its backward is a
 kernel too.
 
-`LAUNCHES` of each wrapper module counts the launches its wrappers make.
-A wrapper called inside a CUDA graph capture counts a launch the capture
-only records; `GraphLaunches` takes those counts back and adds them at
-each replay, which calls no wrapper, so that `launch_counts()` stays the
-number of kernels that ran.
+`LAUNCHES` of each wrapper module counts the launches its wrappers make;
+K3's and K4's are counted by shape too (`conv3x3.SHAPES`,
+`launch_shapes()`), from which a reader works out their work. A wrapper
+called inside a CUDA graph capture counts a launch the capture only
+records; `GraphLaunches` takes those counts back and adds them at each
+replay, which calls no wrapper, so that `launch_counts()` and
+`launch_shapes()` stay the kernels that ran.
 """
 
 import contextlib
@@ -33,40 +35,59 @@ def launch_counts() -> dict[str, int]:
     return {k: v for counts in _COUNTS for k, v in counts.items()}
 
 
+def launch_shapes() -> dict[tuple, int]:
+    """K3 and K4 launches made in this process by shape: (kernel, dtype, N,
+    H, W, C_in, C_out, pad) -> launches; the kernel is "conv3x3",
+    "conv3x3_dgrad" or "conv3x3_wgrad", H and W the input's extent, the
+    channels unpadded."""
+    return dict(conv3x3.SHAPES)
+
+
 def reset_launch_counts() -> None:
+    """Zero `launch_counts()` and empty `launch_shapes()`."""
     for counts in _COUNTS:
         for k in counts:
             counts[k] = 0
+    conv3x3.SHAPES.clear()
 
 
-def _add(delta: dict[str, int], times: int) -> None:
+def _diff(after: dict, before: dict) -> dict:
+    return {k: n - before.get(k, 0) for k, n in after.items() if n != before.get(k, 0)}
+
+
+def _add(delta: dict[str, int], shapes: dict[tuple, int], times: int) -> None:
     for counts in _COUNTS:
         for k in counts.keys() & delta.keys():
             counts[k] += times * delta[k]
+    for k, n in shapes.items():
+        conv3x3.SHAPES[k] += times * n
+        if not conv3x3.SHAPES[k]:
+            del conv3x3.SHAPES[k]
 
 
 class GraphLaunches:
     """The launches of the hand kernels that one captured graph holds.
 
     `capture()` wraps the capture: what the wrappers count inside it is
-    taken back (a capture runs no kernel) and kept as `per_replay`;
-    `replayed()` adds `per_replay` once a replay."""
+    taken back (a capture runs no kernel) and kept as `per_replay` and
+    `per_replay_shapes`; `replayed()` adds them once a replay."""
 
     def __init__(self):
         self.per_replay: dict[str, int] = {}
+        self.per_replay_shapes: dict[tuple, int] = {}
 
     @contextlib.contextmanager
     def capture(self):
-        before = launch_counts()
+        before, shapes = launch_counts(), launch_shapes()
         try:
             yield self
         finally:
-            after = launch_counts()
-            self.per_replay = {k: n - before[k] for k, n in after.items() if n != before[k]}
-            _add(self.per_replay, -1)
+            self.per_replay = _diff(launch_counts(), before)
+            self.per_replay_shapes = _diff(launch_shapes(), shapes)
+            _add(self.per_replay, self.per_replay_shapes, -1)
 
     def replayed(self) -> None:
-        _add(self.per_replay, 1)
+        _add(self.per_replay, self.per_replay_shapes, 1)
 
 
 __all__ = ["conv3x3_fwd", "conv3x3_plain", "conv3x3_wgrad",
@@ -75,4 +96,4 @@ __all__ = ["conv3x3_fwd", "conv3x3_plain", "conv3x3_wgrad",
            "maxpool5x5_bwd", "maxpool5x5_bwd_plain", "maxpool5x5_fwd",
            "maxpool5x5_plain", "reproj_min",
            "reproj_min_automask", "reproj_min_plain", "GraphLaunches", "launch_counts",
-           "reset_launch_counts"]
+           "launch_shapes", "reset_launch_counts"]

@@ -1,11 +1,15 @@
 """Build the port's CUDA kernels from `csrc/` at first use, and bind them.
 
-All `.cu` sources are compiled for Hopper (`sm_90a`) into one shared library
-with `torch.utils.cpp_extension.load`, into `jperceiver_tpu_torch/_build/`.
-The sources export plain C functions and include no PyTorch header, so the
-build takes seconds; the library is bound with `ctypes`, and the wrappers
-pass raw device pointers and the current CUDA stream. A failed build raises:
-there is no fallback.
+The kernels' sources (`SOURCES`) are compiled for Hopper (`sm_90a`) into one
+shared library with `torch.utils.cpp_extension.load`, into
+`jperceiver_tpu_torch/_build/`. The sources export plain C functions and
+include no PyTorch header, so the build takes seconds; the library is bound
+with `ctypes`, and the wrappers pass raw device pointers and the current
+CUDA stream. A failed build raises: there is no fallback.
+
+The phase marks (`csrc/marks.cu`, `tracing.py::mark`) are a library of
+their own (`marks_library`), so that a step routed away from every kernel
+builds the marks alone.
 """
 
 from __future__ import annotations
@@ -13,6 +17,8 @@ from __future__ import annotations
 import ctypes
 import functools
 from pathlib import Path
+
+from ...tracing import timed
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "_build"
@@ -48,26 +54,53 @@ _SIGNATURES = {
 }
 
 
+def _load(name: str, sources, directory: Path) -> ctypes.CDLL:
+    """Compile into `directory` (unless built already) and load the library
+    `name` of `sources`; timed as `kernels.build` (`tracing.py`)."""
+    from torch.utils.cpp_extension import load
+
+    with timed("kernels.build"):
+        directory.mkdir(parents=True, exist_ok=True)
+        path = load(
+            name=name,
+            sources=[str(_CSRC / s) for s in sources],
+            extra_cuda_cflags=list(NVCC_FLAGS),
+            build_directory=str(directory),
+            is_python_module=False,
+            verbose=False,
+        )
+        return ctypes.CDLL(path)
+
+
 @functools.cache
 def library() -> ctypes.CDLL:
     """Compile (once a process) and load the kernels' shared library."""
-    from torch.utils.cpp_extension import load
-
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    path = load(
-        name="jperceiver_tpu_torch_kernels",
-        sources=[str(_CSRC / s) for s in SOURCES],
-        extra_cuda_cflags=list(NVCC_FLAGS),
-        build_directory=str(BUILD_DIR),
-        is_python_module=False,
-        verbose=False,
-    )
-    lib = ctypes.CDLL(path)
+    lib = _load("jperceiver_tpu_torch_kernels", SOURCES, BUILD_DIR)
     for name, argtypes in _SIGNATURES.items():
         fn = getattr(lib, name)
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
     return lib
+
+
+@functools.cache
+def marks_library() -> ctypes.CDLL:
+    """Compile (once a process) and load the phase marks' library, in a
+    build directory of its own."""
+    return _load("jperceiver_tpu_torch_marks", ("marks.cu",), BUILD_DIR / "marks")
+
+
+@functools.cache
+def mark_launcher(name: str):
+    """`jp_mark_launch_<name>(stream) -> cudaError_t` of the marks' library;
+    ValueError for a mark `csrc/marks.cu` does not define."""
+    try:
+        fn = getattr(marks_library(), "jp_mark_launch_" + name)
+    except AttributeError:
+        raise ValueError(f"no phase mark {name!r} in csrc/marks.cu") from None
+    fn.argtypes = (_P,)
+    fn.restype = ctypes.c_int
+    return fn
 
 
 def ptxas_report() -> str:

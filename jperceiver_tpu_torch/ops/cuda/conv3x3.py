@@ -27,6 +27,7 @@ version only for a CPU tensor.
 
 from __future__ import annotations
 
+import collections
 import functools
 from dataclasses import dataclass
 
@@ -38,6 +39,9 @@ from . import _build
 # Launches of the kernels (not of the plain versions) in this process:
 # K3 as the forward, K3 as the data-grad, K4.
 LAUNCHES = {"conv3x3": 0, "conv3x3_dgrad": 0, "conv3x3_wgrad": 0}
+# The same launches by what each computed: (kernel, dtype, N, H, W, C_in, C_out, pad), the
+# kernel a key of LAUNCHES, H and W the input's, the channels unpadded.
+SHAPES: collections.Counter = collections.Counter()
 
 _DTYPES = (torch.float32, torch.bfloat16)
 _F32_C_ALIGN = 32  # fp32 K3's K step: input channels are zero-padded to this
@@ -369,8 +373,14 @@ def _conv(x, w, b, pad, counter, xh=None):
             xh.data_ptr(), wk.data_ptr(), None if bias is None else bias.data_ptr(),
             y.data_ptr(), bsz, h, wd, cp, o, pad, stream)
     _build.check(err, "conv3x3")
-    LAUNCHES[counter] += 1
+    _count(counter, x.dtype, bsz, h, wd, c, o, pad)
     return y
+
+
+def _count(kernel: str, dtype: torch.dtype, n: int, h: int, w: int, c: int, o: int,
+           pad: int) -> None:
+    LAUNCHES[kernel] += 1
+    SHAPES[(kernel, str(dtype).removeprefix("torch."), n, h, w, c, o, pad)] += 1
 
 
 def _aligned(*ts: torch.Tensor) -> None:
@@ -414,7 +424,7 @@ def conv3x3_wgrad(x: torch.Tensor, g: torch.Tensor, pad: int) -> torch.Tensor:
         xh.data_ptr(), gh.data_ptr(), partial.data_ptr(), out.data_ptr(),
         bsz, h, wd, c, cp, o, op, pad, chunk, splits, _stream(x))
     _build.check(err, "conv3x3_wgrad")
-    LAUNCHES["conv3x3_wgrad"] += 1
+    _count("conv3x3_wgrad", x.dtype, bsz, h, wd, c, o, pad)
     return out
 
 
@@ -432,7 +442,7 @@ def _wgrad_bf16(xh: torch.Tensor, g: torch.Tensor, pad: int) -> torch.Tensor:
         bsz, h, wd, c, *_strides(xh), o, *_strides(gh), pad, p.box_w, p.box_h, p.bn,
         p.splits, p.tiles_per_split, p.flush_tiles, _stream(xh))
     _build.check(err, "conv3x3_wgrad")
-    LAUNCHES["conv3x3_wgrad"] += 1
+    _count("conv3x3_wgrad", xh.dtype, bsz, h, wd, c, o, pad)
     return out
 
 
