@@ -5,6 +5,8 @@
     python3 chip_conv_sweep.py --k4-anatomy    # what sets a K4 step's time
     python3 chip_conv_sweep.py --k4-flush [--parent DIR]
                                                # K4's second-sum interval
+    python3 chip_conv_sweep.py --k3-tf32 [--parent DIR]
+                                               # K3's TF32 path
 
 At every K3 site shape of the 1024^2 training step, times K3 through its C
 entry point, bypassing the tile plan, at each output-tile width (forward
@@ -43,10 +45,25 @@ adds (round to nearest), which tells an accumulator that loses precision in
 its own adds from error that any fp32 chain of that length would have.
 Output: chiprun_out/k4_flush.json. With `--parent DIR` it also times that
 checkout's K4 on its own plan in the same run.
+
+`--k3-tf32` times K3's TF32 path through its wrapper (the weight's
+rounded copy included) at every site at B = 1 and 3, as the forward and as
+the data-grad, beside its bound at 494.7 TFLOP/s and 3.35 TB/s, cuDNN's
+TF32 (`allow_tf32` on) and the exact fp32 kernel; K3 and cuDNN each with
+its largest distance to float64 of the rounded operands in TF32 gaps (the
+largest distance between float64 of the rounded and of the exact
+operands). At
+the two widest sites at B = 3 it also runs, at 128 wide, the kernel built
+with a second fp32 sum every 9 or 36 K steps (`K3_CHAIN_EDITS`) beside the
+shipped one at the same width, which tells whether the accumulator's own
+adds need one. With `--parent DIR` it holds the bf16 and exact fp32 paths
+bit for bit to that checkout's `conv3x3.cu` at every site at B = 1.
+Output: chiprun_out/k3_tf32.json.
 """
 
 from __future__ import annotations
 
+import functools
 import json
 import math
 import os
@@ -54,34 +71,173 @@ import sys
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 # (c_in, c_out, output extent, pad) of the step's K3 sites.
-SITES = [(64, 64, 256, 1), (128, 128, 128, 1), (256, 256, 64, 1), (513, 256, 64, 0),
-         (256, 256, 128, 0), (513, 256, 128, 0), (256, 256, 256, 0), (513, 256, 256, 0)]
+SITES = [(64, 64, 256, 1), (128, 128, 128, 1), (256, 256, 64, 1), (256, 256, 64, 0),
+         (513, 256, 64, 0), (256, 256, 128, 0), (513, 256, 128, 0), (256, 256, 256, 0),
+         (513, 256, 256, 0)]
 
 
-def parent_k4(parent: str):
-    """K4 as another checkout (`parent`, e.g. the parent commit unpacked)
-    has it: its conv3x3_wgrad.cu built alone with nvcc and bound with
-    ctypes, with the bf16 entry's interface of the parent commit (the same
-    as this checkout's; its plan is `parent_plan`)."""
+def csrc_of(checkout: str) -> str:
+    """The kernels' source directory of a checkout of the repo."""
+    return os.path.join(checkout, "jperceiver_tpu_torch", "ops", "cuda", "csrc")
+
+
+def build_alone(csrc: str, source: str, name: str, text: str | None = None):
+    """`source` of `csrc` (this or another checkout's, `csrc_of`), or `text`
+    in its place, built alone with nvcc into the build directory's `name`
+    and bound with ctypes as `_build` binds the kernels' library: K4 of the
+    parent commit (`parent_plan`), whose entry has this checkout's
+    interface, or a variant of K3."""
     import ctypes
     import subprocess
 
     from jperceiver_tpu_torch.ops.cuda import _build
     from torch.utils.cpp_extension import CUDA_HOME
 
-    csrc = os.path.join(parent, "jperceiver_tpu_torch", "ops", "cuda", "csrc")
-    build = os.path.join(_build.BUILD_DIR, "parent_k4")
+    build = os.path.join(_build.BUILD_DIR, name)
     os.makedirs(build, exist_ok=True)
-    so = os.path.join(build, "wgrad.so")
+    so = os.path.join(build, source.replace(".cu", ".so"))
+    path = os.path.join(csrc, source)
+    if text is not None:
+        path = os.path.join(build, source)
+        with open(path, "w") as f:
+            f.write(text)
     subprocess.run([os.path.join(CUDA_HOME, "bin", "nvcc"), *_build.NVCC_FLAGS, "-shared",
-                    "-Xcompiler", "-fPIC", "-I", csrc, "-o", so,
-                    os.path.join(csrc, "conv3x3_wgrad.cu")], check=True)
+                    "-Xcompiler", "-fPIC", "-I", csrc, "-o", so, path], check=True)
     lib = ctypes.CDLL(so)
-    P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    lib.jp_conv3x3_wgrad_bf16.argtypes = (P, P, P, P, I, I, I, I, L, L, L, I, L, L, L) + (I,) * 7 \
-        + (P,)
-    lib.jp_conv3x3_wgrad_bf16.restype = I
+    for fn, argtypes in _build._SIGNATURES.items():
+        if hasattr(lib, fn):
+            getattr(lib, fn).argtypes = argtypes
+            getattr(lib, fn).restype = ctypes.c_int
     return lib
+
+
+# K3-TF32 with a second fp32 sum that takes the accumulator every K3_CHAIN K
+# steps (run at tiles of 128 channels: two accumulator sets in registers),
+# as edits of a copy of `csrc/conv3x3.cu`: (text, what replaces it).
+K3_CHAIN_EDITS = [
+    ("    uint32_t a[BK / 8][4];\n",
+     "    uint32_t a[BK / 8][4];\n    float sum[BN / 2] = {};\n"),
+    ("      if (lane == 0) jp::mbar_arrive(&empty[s]);\n    }\n    jp::fence_accumulator(acc);\n",
+     "      if (lane == 0) jp::mbar_arrive(&empty[s]);\n"
+     "      if ((i + 1) % K3_CHAIN == 0) {\n"
+     "        jp::fence_accumulator(acc);\n"
+     "#pragma unroll\n"
+     "        for (int r = 0; r < BN / 2; ++r) { sum[r] += acc[r]; acc[r] = 0.0f; }\n"
+     "        jp::fence_accumulator(acc);\n"
+     "      }\n"
+     "    }\n"
+     "    jp::fence_accumulator(acc);\n"
+     "#pragma unroll\n"
+     "    for (int r = 0; r < BN / 2; ++r) acc[r] += sum[r];\n"),
+]
+
+
+def k3_chain_copy(src: str, chain: int) -> str:
+    """`conv3x3.cu`'s text with K3_CHAIN_EDITS made, the sum every `chain` K
+    steps."""
+    for old, new in K3_CHAIN_EDITS:
+        if src.count(old) != 1:
+            raise ValueError(f"K3_CHAIN_EDITS: not found once in conv3x3.cu: {old!r}")
+        src = src.replace(old, new)
+    return src.replace("K3_CHAIN", str(chain))
+
+
+def k3_tf32_sweep(torch, parent: str | None = None) -> list[dict]:
+    import torch.nn.functional as F
+
+    from chip_smoke import time_ms
+    from jperceiver_tpu_torch.ops.cuda import _build
+    from jperceiver_tpu_torch.ops.cuda import conv3x3 as k3
+
+    csrc = csrc_of(ROOT)
+    own = _build.library
+    lib = own()
+    with open(os.path.join(csrc, "conv3x3.cu")) as f:
+        text = f.read()
+    chains = {n: build_alone(csrc, "conv3x3.cu", f"k3_chain{n}", k3_chain_copy(text, n))
+              for n in (9, 36)}
+    plib = build_alone(csrc_of(parent), "conv3x3.cu", "parent_k3") if parent else None
+    card = torch.cuda.get_device_name(0)
+    g = torch.Generator(device="cuda").manual_seed(16)
+    grad = torch.nn.grad
+    rows = []
+
+    def gaps(y, x, w, pad):
+        """y's largest distance to float64 of the rounded operands, in TF32 gaps."""
+        ref = F.conv2d(k3.round_tf32(x).double(), k3.round_tf32(w).double(), padding=pad)
+        gap = (ref - F.conv2d(x.double(), w.double(), padding=pad)).abs().max().item()
+        return (y.double() - ref).abs().max().item() / gap
+
+    def raw(lib, x, w, bn, pad):
+        """K3-TF32 through `lib`'s C entry point at output width bn."""
+        bsz, c, h, wd = x.shape
+        o = w.shape[0]
+        p = k3.k3_plan(bsz, h, wd, c, o, pad, elem=4)
+        xh, wk = k3._tma_operand(x), k3._weight_operand(w, torch.float32, True)
+        ys = torch.empty(bsz, p.ho, p.wo, p.o_store, device="cuda")
+
+        def run():
+            err = lib.jp_conv3x3_fwd_tf32(xh.data_ptr(), wk.data_ptr(), None, ys.data_ptr(), bsz,
+                                          h, wd, c, *k3._strides(xh), wk.shape[3], o, p.o_store,
+                                          pad, p.box_w, p.box_h, bn, k3._stream(x))
+            _build.check(err, "conv3x3 tf32")
+            return ys.permute(0, 3, 1, 2)[:, :o]
+        return run
+
+    for bsz in (1, 3):
+        for c, o, e, pad in SITES:
+            hin = e + 2 - 2 * pad
+            x = torch.randn(bsz, c, hin, hin, device="cuda", generator=g)
+            x = x.contiguous(memory_format=torch.channels_last)
+            w = torch.randn(o, c, 3, 3, device="cuda", generator=g) / math.sqrt(9 * c)
+            gy = torch.randn(bsz, o, e, e, device="cuda", generator=g)
+            gy = gy.contiguous(memory_format=torch.channels_last)
+            wt = w.flip(2, 3).transpose(0, 1)
+            flops = 2 * bsz * e * e * o * 9 * c
+            row = {"card": card, "batch": bsz, "site": [c, o, e, pad],
+                   "plan_bn": k3.k3_plan(bsz, hin, hin, c, o, pad, elem=4).bn,
+                   "dgrad_plan_bn": k3.k3_plan(bsz, e, e, o, c, 2 - pad, elem=4).bn}
+            for name, a, wk, pd, cin, cout, ext_in, ext_out in (
+                    ("fwd", x, w, pad, c, o, hin, e), ("dgrad", gy, wt, 2 - pad, o, c, e, hin)):
+                byts = 4 * (bsz * ext_in ** 2 * cin + cout * 9 * cin + bsz * ext_out ** 2 * cout)
+                row[f"{name}_bound_ms"] = 1e3 * max(flops / 494.7e12, byts / 3.35e12)
+                torch.backends.cudnn.allow_tf32 = True
+                y = k3._conv(a, wk, None, pd, "conv3x3")
+                row[f"{name}_err_gaps"] = gaps(y, a, wk, pd)
+                row[f"{name}_tf32_ms"] = time_ms(
+                    torch, lambda: k3._conv(a, wk, None, pd, "conv3x3"), reps=10)
+                lib_call = (functools.partial(F.conv2d, x, w, padding=pad) if name == "fwd" else
+                            functools.partial(grad.conv2d_input, x.shape, w, gy, padding=pad))
+                row[f"{name}_cudnn_err_gaps"] = gaps(lib_call(), a, wk, pd)
+                row[f"{name}_cudnn_tf32_ms"] = time_ms(torch, lib_call, reps=10)
+                torch.backends.cudnn.allow_tf32 = False
+                row[f"{name}_f32_ms"] = time_ms(
+                    torch, lambda: k3._conv(a, wk, None, pd, "conv3x3"), reps=10)
+                row[f"{name}_share"] = row[f"{name}_bound_ms"] / row[f"{name}_tf32_ms"]
+                if bsz == 3 and name == "fwd" and e == 256 and pad == 0:
+                    for n, clib in [(0, lib), *chains.items()]:
+                        run = raw(clib, a, wk, 128, pd)
+                        row[f"chain{n}_bn128_err_gaps"] = gaps(run(), a, wk, pd)
+                        row[f"chain{n}_bn128_ms"] = time_ms(torch, run, reps=10)
+                if plib is not None and bsz == 1:
+                    # bf16 and exact fp32 against the other checkout's kernels,
+                    # launched by this wrapper with its library swapped in.
+                    torch.backends.cudnn.allow_tf32 = False
+                    for dtype in (torch.bfloat16, torch.float32):
+                        ad, wd = a.to(dtype), wk.to(dtype)
+                        ours = k3._conv(ad, wd, None, pd, "conv3x3")
+                        _build.library = lambda: plib
+                        try:
+                            theirs = k3._conv(ad, wd, None, pd, "conv3x3")
+                        finally:
+                            _build.library = own
+                        row[f"{name}_{str(dtype)[6:]}_equal_parent"] = bool(
+                            torch.equal(ours.float(), theirs.float()))
+            print(json.dumps(row), flush=True)
+            rows.append(row)
+            del x, gy, w, wt
+            torch.cuda.empty_cache()
+    return rows
 
 
 def k4_flush_sweep(torch, parent: str | None = None) -> list[dict]:
@@ -91,7 +247,8 @@ def k4_flush_sweep(torch, parent: str | None = None) -> list[dict]:
                                                        k4_plan)
 
     lib = _build.library()
-    plib = parent_k4(parent) if parent else None
+    plib = (build_alone(csrc_of(parent), "conv3x3_wgrad.cu", "parent_k4") if parent
+            else None)
     report = _build.ptxas_report()
     print(report[report.index("== conv3x3_wgrad.cu"):report.index("== maxpool5x5.cu")], flush=True)
     grad = torch.nn.grad
@@ -529,6 +686,14 @@ def main() -> int:
         with open(os.path.join(ROOT, "chiprun_out", "k4_anatomy.json"), "w") as f:
             json.dump(res, f, indent=1)
         return 0
+    if "--k3-tf32" in sys.argv[1:]:
+        args = sys.argv[1:]
+        rows = k3_tf32_sweep(torch, args[args.index("--parent") + 1] if "--parent" in args
+                             else None)
+        os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
+        with open(os.path.join(ROOT, "chiprun_out", "k3_tf32.json"), "w") as f:
+            json.dump(rows, f, indent=1)
+        return 0
     if "--k4-flush" in sys.argv[1:]:
         args = sys.argv[1:]
         rows = k4_flush_sweep(torch, args[args.index("--parent") + 1] if "--parent" in args
@@ -539,7 +704,8 @@ def main() -> int:
         return 0
     lib = _build.library()
     args = sys.argv[1:]
-    plib = parent_k4(args[args.index("--parent") + 1]) if "--parent" in args else None
+    plib = (build_alone(csrc_of(args[args.index("--parent") + 1]), "conv3x3_wgrad.cu",
+                        "parent_k4") if "--parent" in args else None)
     grad = torch.nn.grad
     card = torch.cuda.get_device_name(0)
     g = torch.Generator(device="cuda").manual_seed(0)

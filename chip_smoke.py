@@ -153,20 +153,35 @@ Phases, each of which raises on failure:
      graph=True at more, where None stays eager); each hand kernel's launches
      in a profiled replay at phase 9's counts a step, NCCL's kernels by
      name; times (not gated). `python3 chip_smoke.py --ddp-graph 2 4`
-     runs phase 16 alone on 2 and then 4 cards.
+     runs phase 16 alone on 2 and then 4 cards;
+ 17. (run after phase 8) K3's TF32 path, which fp32 operands take where
+     `torch.backends.cudnn.allow_tf32` is set (every other phase runs with
+     it off): at every K3 site of the training step at B = 1 and 3, as the
+     forward and as the data-grad, against the plain version on the
+     operands rounded to TF32 (`round_tf32`), within TF32_TOL_GAPS of the
+     site's TF32 gap, which a kernel that truncates the activation fails
+     (`_truncate_tf32`, read beside), each call counted by
+     `tf32_launch_counts()`; timed at B = 1 beside its bound at 494.7
+     TFLOP/s, cuDNN's TF32, the exact fp32 kernel and the plain version;
+     then phase 8's fp32 step captured with the flag on and off (one step
+     object: the flag is in the graph's key), each setting's launches and
+     TF32 launches in a replay from the counters, and its K3 kernels by
+     name in a profiled replay (TF32 or exact, none of the other).
+     `python3 chip_smoke.py --k3-tf32` runs phase 17 alone.
 
 Phases 9, 10 and 13 run the step and the eval hook's forward as CUDA
 graphs, the default on the card (`make_train_step(graph=None)`); the
 counters add a graph's launches at each replay.
 
 Prints the card line, a JSON line describing every kernel (with its
-launches in phases 8-11, 13 and 16), and last the device line. Full results go to
+launches in phases 8-11, 13, 16 and 17), and last the device line. Full results go to
 chiprun_out/chip_smoke.json. Exits non-zero without a CUDA device, outside
 a checkout of the repo, or when a phase fails.
 """
 
 from __future__ import annotations
 
+import functools
 import json
 import math
 import os
@@ -180,6 +195,12 @@ HW, OCC = 1024, 256
 # NVIDIA H100 SXM data sheet, dense: bf16 tensor cores, fp32 without tensor
 # cores, HBM3 bandwidth.
 PEAK_BF16, PEAK_FP32, HBM_BYTES_S = 989e12, 67e12, 3.35e12
+# TF32 tensor cores, dense (half the bf16 rate), for K3's TF32 path.
+PEAK_TF32 = 494.7e12
+# K3's TF32 path within this share of a site's TF32 gap of the plain version
+# on the operands rounded to TF32 (phase 17). Rounded to nearest it reads a
+# few hundredths; a kernel that truncates the activation reads 1.7-2.1.
+TF32_TOL_GAPS = 0.25
 # Cycles of torch.cuda._sleep per second the host takes to enqueue the
 # timed calls: 1.5x the H100's 1.98 GHz boost clock, so the spin outlasts it.
 SPIN_CYCLES_PER_S = 3e9
@@ -1322,6 +1343,149 @@ def phase_train(torch) -> dict:
     log(f"train launches {res['launches']}; peak {res['peak_memory_gb']:.2f} GB; "
         f"device operations {res['profiler']['device_events']}; profiler {res['profiler']}")
     return res
+
+
+def _truncate_tf32(torch, t):
+    """t (fp32) with its 13 low mantissa bits cleared: what the tensor cores
+    make of fp32 bits fed to a TF32 product as they are."""
+    return (t.contiguous().view(torch.int32) & -0x2000).view(torch.float32)
+
+
+def phase_k3_tf32(torch, train_sites) -> dict:
+    """Phase 17: K3's TF32 path at the training step's K3 sites, then the
+    captured fp32 step with `cudnn.allow_tf32` on and off."""
+    from jperceiver_tpu_torch.data import synthetic_batch
+    from jperceiver_tpu_torch.engine import make_train_step
+    from jperceiver_tpu_torch.engine.trainer import batch_to
+    from jperceiver_tpu_torch.ops import cuda as kernels
+    from jperceiver_tpu_torch.ops.cuda import conv3x3_plain
+    from jperceiver_tpu_torch.ops.cuda.conv3x3 import _conv, round_tf32
+
+    F, grad, flags = torch.nn.functional, torch.nn.grad, torch.backends.cudnn
+    g = torch.Generator(device="cuda").manual_seed(17)
+    per_step = Counter((s["c_in"], s["c_out"], s["h"], s["w"], s["pad"])
+                       for s in train_sites if s["k3"])
+    rows, tot, worst = [], Counter(), 0.0
+    # Each site as the forward (with a bias) and as the data-grad (K3 at pad
+    # 2 - pad on the cotangent, flipped and transposed weights), against
+    # the plain version on the operands rounded to TF32 (their products
+    # exact in fp32) in units of the site's TF32 gap, the largest distance
+    # between the plain version on the exact and on the rounded operands.
+    # A kernel fed the activation's fp32 bits as they are truncates it: the
+    # plain version on the truncated activation and rounded weight reads
+    # `trunc_gaps`, which the limit must fail.
+    for bsz in (1, FIT_B):
+        for (c, o, h, w, pad), count in sorted(per_step.items()):
+            hin, win = h + 2 - 2 * pad, w + 2 - 2 * pad
+            x = torch.randn(bsz, c, hin, win, device="cuda", generator=g)
+            x = x.contiguous(memory_format=torch.channels_last)
+            wt = torch.randn(o, c, 3, 3, device="cuda", generator=g) / math.sqrt(9 * c)
+            b = 0.1 * torch.randn(o, device="cuda", generator=g)
+            gy = torch.randn(bsz, o, h, w, device="cuda", generator=g)
+            gy = gy.contiguous(memory_format=torch.channels_last)
+            wflip = wt.flip(2, 3).transpose(0, 1)
+            row = {"batch": bsz, "c_in": c, "c_out": o, "h": h, "w": w, "pad": pad,
+                   "sites_per_step": count}
+            for name, a, wk, bias, pd, counter, cin, cout, (ei, eo) in (
+                    ("fwd", x, wt, b, pad, "conv3x3", c, o, ((hin, win), (h, w))),
+                    ("dgrad", gy, wflip, None, 2 - pad, "conv3x3_dgrad", o, c,
+                     ((h, w), (hin, win)))):
+                flags.allow_tf32 = False
+                ref = conv3x3_plain(round_tf32(a), round_tf32(wk), bias, pd)
+                gap = (conv3x3_plain(a, wk, bias, pd) - ref).abs().max().item()
+                trunc = conv3x3_plain(_truncate_tf32(torch, a), round_tf32(wk), bias, pd)
+                flags.allow_tf32 = True
+                n0 = kernels.tf32_launch_counts()[counter]
+                y = _conv(a, wk, bias, pd, counter)
+                torch.cuda.synchronize()
+                row[name + "_err_gaps"] = (y - ref).abs().max().item() / gap
+                row[name + "_trunc_gaps"] = (trunc - ref).abs().max().item() / gap
+                row[name + "_tf32_counted"] = kernels.tf32_launch_counts()[counter] - n0
+                if not (row[name + "_err_gaps"] <= TF32_TOL_GAPS < row[name + "_trunc_gaps"]
+                        and row[name + "_tf32_counted"] == 1
+                        and tuple(y.shape) == (bsz, cout, *eo)):
+                    raise AssertionError(f"K3 TF32 {name} against the plain version on "
+                                         f"rounded operands: {row}")
+                worst = max(worst, row[name + "_err_gaps"])
+                del ref, trunc, y
+                if bsz != 1:
+                    continue
+                n_ops = 2.0 * eo[0] * eo[1] * cout * 9 * cin
+                n_bytes = 4.0 * (cin * ei[0] * ei[1] + cout * 9 * cin + cout * eo[0] * eo[1])
+                bnd, by = bound_ms(n_bytes, n_ops, PEAK_TF32)
+                lib = (functools.partial(F.conv2d, x, wt, b, padding=pad) if name == "fwd"
+                       else functools.partial(grad.conv2d_input, x.shape, wt, gy, padding=pad))
+                row.update({
+                    name + "_bound_ms": bnd, name + "_bound_by": by,
+                    # The wrapper's rounded weight copy and the 544-wide
+                    # copy of the 513-channel concat included.
+                    name + "_ms": time_ms(torch, lambda: _conv(a, wk, bias, pd, counter),
+                                          reps=10),
+                    name + "_library_ms": time_ms(torch, lib, reps=10)})
+                flags.allow_tf32 = False
+                row.update({
+                    name + "_exact_ms": time_ms(torch, lambda: _conv(a, wk, bias, pd, counter),
+                                                reps=10),
+                    name + "_plain_ms": time_ms(torch, lambda: conv3x3_plain(a, wk, bias, pd),
+                                                reps=10)})
+                row[name + "_bound_share"] = bnd / row[name + "_ms"]
+                for k in ("ms", "library_ms", "exact_ms", "plain_ms", "bound_ms"):
+                    tot[f"{name}_{k}"] += count * row[f"{name}_{k}"]
+            row["spins"] = take_spins()
+            rows.append(row)
+            log(f"K3 TF32 {row}")
+            del x, gy, wt, wflip
+    flags.allow_tf32 = False
+    torch.cuda.empty_cache()
+
+    # The main path: the captured fp32 step (phase 8's, with fp32 operands
+    # for the reprojection kernels), one step object, the flag on and then
+    # off; the flag is part of a graph's key, so each setting captures and
+    # replays its own graph. Counts set to 0 just before a replay, read
+    # just after; then a profiled replay's K3 kernels by name.
+    from torch.profiler import ProfilerActivity, profile
+
+    batch = batch_to(synthetic_batch(1, HW, HW, OCC, seed=0), "cuda")
+    model = build_model(torch, torch.float32, "road")
+    step = make_train_step(model, dict(TRAIN_CFG, pallas_reproj_bf16=False), seed=0,
+                           steps_per_epoch=STEPS_PER_EPOCH)
+    n_k3 = sum(per_step.values())
+    main = {}
+    for on in (True, False):
+        flags.allow_tf32 = on
+        for _ in range(2):
+            step(batch)
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        m = step(batch)
+        torch.cuda.synchronize()
+        got = {"launches": kernels.launch_counts(), "tf32_launches": kernels.tf32_launch_counts(),
+               "loss": float(m["loss"])}
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            step(batch)
+            torch.cuda.synchronize()
+        dev = [e for e in _device_events(prof) if "conv3x3_f32" in e.name]
+        tf32 = [e for e in dev if "tf32" in e.name]
+        exact = [e for e in dev if "tf32" not in e.name]
+        got.update(profiled_tf32_kernels=len(tf32), profiled_exact_kernels=len(exact),
+                   tf32_kernel_ms=sum(e.time_range.elapsed_us() for e in tf32) / 1e3,
+                   exact_kernel_ms=sum(e.time_range.elapsed_us() for e in exact) / 1e3)
+        want = {"conv3x3": n_k3, "conv3x3_dgrad": n_k3} if on else {"conv3x3": 0,
+                                                                     "conv3x3_dgrad": 0}
+        n_tf32, n_exact = (2 * n_k3, 0) if on else (0, 2 * n_k3)
+        if not (got["tf32_launches"] == want
+                and (got["launches"]["conv3x3"], got["launches"]["conv3x3_dgrad"]) == (n_k3, n_k3)
+                and (got["profiled_tf32_kernels"], got["profiled_exact_kernels"])
+                == (n_tf32, n_exact) and math.isfinite(got["loss"])):
+            raise AssertionError(f"captured fp32 step, allow_tf32 {on}: {got}, expected TF32 "
+                                 f"launches {want} and {n_tf32} TF32 / {n_exact} exact kernels")
+        main["tf32_on" if on else "tf32_off"] = got
+        log(f"K3 TF32 main path, allow_tf32 {on}: {got}")
+    del step, model
+    flags.allow_tf32 = False
+    torch.cuda.empty_cache()
+    return {"rows": rows, "max_err_gaps": worst, "tol_gaps": TF32_TOL_GAPS,
+            "per_step": dict(tot), "main_path": main}
 
 
 # Phase 9's loss keys: the JAX Trainer's train payload for the flagship
@@ -3614,6 +3778,57 @@ def main_ddp_graph(worlds: list[int]) -> int:
     return 0
 
 
+def tf32_entries(kt: dict) -> list[dict]:
+    """The kernel table's rows of phase 17: K3's TF32 path as the forward
+    and as the data-grad, device ms a 1024^2 fp32 B=1 step (each site's
+    time at B = 1 by its launches a step), beside its bound at PEAK_TF32,
+    cuDNN's TF32 ("library"), the exact fp32 kernel and the plain version
+    (cuDNN in exact fp32); launches a replay of the captured step."""
+    per, launches = kt["per_step"], kt["main_path"]["tf32_on"]["tf32_launches"]
+    rows = []
+    for kid, name, key, counter, replaces in (
+            ("K3-TF32", "conv3x3_fwd_tf32", "fwd", "conv3x3",
+             "jperceiver_tpu/ops/pallas/conv3x3.py:57"),
+            ("K3-dgrad-TF32", "conv3x3_dgrad_tf32", "dgrad", "conv3x3_dgrad",
+             "jperceiver_tpu/ops/pallas/conv3x3.py:242")):
+        ms, lib = per[key + "_ms"], per[key + "_library_ms"]
+        rows.append({"id": kid, "name": name, "route": "cuda", "source": K3_SRC,
+                     "replaces": replaces, "launches": launches[counter],
+                     "max_err_tf32_gaps": max(r[key + "_err_gaps"] for r in kt["rows"]),
+                     "ms": ms, "plain_ms": per[key + "_plain_ms"],
+                     "exact_ms": per[key + "_exact_ms"], "bound_ms": per[key + "_bound_ms"],
+                     "bound_by": "operations", "library_ms": lib,
+                     "bound_share": per[key + "_bound_ms"] / ms, "library_ratio": ms / lib})
+    return rows
+
+
+def main_k3_tf32() -> int:
+    """`chip_smoke.py --k3-tf32`: phase 17 alone, its rows of the kernel
+    table on stdout and its readings in chiprun_out/k3_tf32_smoke.json."""
+    import torch
+
+    if not torch.cuda.is_available():
+        log("chip_smoke --k3-tf32: no CUDA device")
+        return 2
+    sys.path.insert(0, ROOT)
+    from jperceiver_tpu_torch.models.jperceiver import conv3x3_sites
+    from jperceiver_tpu_torch.ops.cuda import _build
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        check=True, capture_output=True, text=True).stdout.strip().splitlines()[0]
+    print(card, flush=True)
+    _build.library()
+    kt = phase_k3_tf32(torch, conv3x3_sites(HW, HW, OCC, branches="road"))
+    os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
+    with open(os.path.join(ROOT, "chiprun_out", "k3_tf32_smoke.json"), "w") as f:
+        json.dump({"card": card, "k3_tf32": kt}, f, indent=1)
+    print(json.dumps({"kernels": tf32_entries(kt)}), flush=True)
+    return 0
+
+
 def main() -> int:
     import torch
 
@@ -3659,6 +3874,7 @@ def main() -> int:
     rp = phase_reproj(torch)
     cb = phase_conv_bwd(torch, train_sites)
     tr = phase_train(torch)
+    kt = phase_k3_tf32(torch, train_sites)
     ft = phase_fit(torch, train_sites)
 
     launches = ev["launches"]
@@ -3768,12 +3984,14 @@ def main() -> int:
         # Per rank, in a profiled replay of phase 16's captured step.
         row["ddp_graph_launches"] = {f"rank{r['rank']}": r["replay"]["launch_counts"][counter]
                                      for r in ddpg["ranks"]}
+    # Phase 17's rows: K3's TF32 path, its launches in the captured fp32 step.
+    table["kernels"] += tf32_entries(kt)
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
     with open(os.path.join(ROOT, "chiprun_out", "chip_smoke.json"), "w") as f:
         json.dump({"card": card, "build_s": build_s, "ptxas": ptxas, "k3_sites": n_k3,
                    "k3": k3, "k5": k5, "stem_pool": sp, "eval": ev, "stream": st, "reproj": rp,
-                   "conv_bwd": cb, "train": tr, "fit": ft, "workflow": wf, "ddp": dp,
-                   "tools": tools, "kitti": kitti, "repeat": rep, "graph": graph,
+                   "conv_bwd": cb, "train": tr, "k3_tf32": kt, "fit": ft, "workflow": wf,
+                   "ddp": dp, "tools": tools, "kitti": kitti, "repeat": rep, "graph": graph,
                    "ddp_graph": ddpg,
                    "seconds": time.perf_counter() - t_start, "table": table},
                   f, indent=1)
@@ -3789,4 +4007,6 @@ if __name__ == "__main__":
         sys.exit(child_main(sys.argv[2], sys.argv[3]))
     if len(sys.argv) > 2 and sys.argv[1] == "--ddp-graph":  # phase 16 alone, on W cards
         sys.exit(main_ddp_graph([int(w) for w in sys.argv[2:]]))
+    if sys.argv[1:] == ["--k3-tf32"]:  # phase 17 alone
+        sys.exit(main_k3_tf32())
     sys.exit(main())

@@ -232,14 +232,15 @@ def set_kernels(model: nn.Module, conv3x3_shallow: bool = True,
 
 def kernel_gates(model: nn.Module):
     """A reader of `model`'s routing to the kernels, what `set_kernels`
-    sets: a captured graph keeps the routing it was captured with, so the
-    routing is part of its key."""
+    sets, and of `torch.backends.cudnn.allow_tf32`, which routes K3's
+    float32 calls (and cuDNN's) to TF32: a captured graph keeps the routing
+    it was captured with, so the routing is part of its key."""
     from .resnet import ResNet
 
     convs = [m for m in model.modules() if isinstance(m, Conv3x3)]
     pools = [m for m in model.modules() if isinstance(m, (CRPBlock, ResNet))]
     return lambda: (tuple((m.gate_shallow, m.gate_deep) for m in convs),
-                    tuple(m.use_kernel for m in pools))
+                    tuple(m.use_kernel for m in pools), torch.backends.cudnn.allow_tf32)
 
 
 class ConvReflect3x3(nn.Module):

@@ -42,6 +42,7 @@ _L = ctypes.c_longlong
 # name -> argument types; every function returns a cudaError_t as int.
 _SIGNATURES = {
     "jp_conv3x3_fwd_bf16": (_P, _P, _P, _P, _I, _I, _I, _I, _L, _L, _L) + (_I,) * 8 + (_P,),
+    "jp_conv3x3_fwd_tf32": (_P, _P, _P, _P, _I, _I, _I, _I, _L, _L, _L) + (_I,) * 7 + (_P,),
     "jp_conv3x3_fwd_f32": (_P, _P, _P, _P) + (_I,) * 6 + (_P,),
     "jp_conv3x3_wgrad_bf16": (_P, _P, _P, _P, _I, _I, _I, _I, _L, _L, _L, _I, _L, _L, _L)
     + (_I,) * 7 + (_P,),

@@ -7,11 +7,22 @@ pad 1, `pallas_conv3x3_valid` for pad 0, each a `custom_vjp`). The kernels
 are `csrc/conv3x3.cu`, an implicit GEMM over channels-last tiles, and
 `csrc/conv3x3_wgrad.cu`, a pixel-split GEMM with a deterministic reduction;
 see there for their design and bound. In bf16 both load their tiles with
-TMA, one box per tap, and multiply with wgmma; `k3_plan` and `k4_plan` say
-which boxes, and the CPU tests replay those plans with tensor slicing.
+TMA, one box per tap, and multiply with wgmma; so does K3 on fp32 operands
+in TF32, 32 channels a box row; `k3_plan` and `k4_plan` say which boxes,
+and the CPU tests replay those plans with tensor slicing.
 
 Contract: operands in their input dtype (bf16 or fp32), fp32 accumulation,
 the bias added to the fp32 accumulator, the output in the input dtype.
+Float32 K3 calls follow `torch.backends.cudnn.allow_tf32`, read at each
+call, as cuDNN's fp32 convolution does (`k3_path`): set (PyTorch's
+default), the operands go to TF32 products, rounded to nearest even at 10
+mantissa bits (`round_tf32`: the weight here, the activation in the
+kernel), with fp32 accumulation -- the benchmark's reference rounds every
+convolution's operands so; off, they stay exact fp32 products on the CUDA
+cores. The TF32 kernel's bound at a site is its operations at 494.7
+TFLOP/s or its bytes at 3.35 TB/s; it reaches 0.16-0.70 of it at the
+step's sites, 0.52 at the widest at B = 3 (`csrc/conv3x3.cu`). K4 stays
+exact fp32 on fp32 operands.
 Tensors are NCHW at this interface; the kernels read channels-last memory,
 so the wrappers take an NCHW tensor in channels-last memory format as it is
 and return outputs in that format.
@@ -39,6 +50,8 @@ from . import _build
 # Launches of the kernels (not of the plain versions) in this process:
 # K3 as the forward, K3 as the data-grad, K4.
 LAUNCHES = {"conv3x3": 0, "conv3x3_dgrad": 0, "conv3x3_wgrad": 0}
+# Of K3's launches (each counted in LAUNCHES too), those that took the TF32 path.
+TF32_LAUNCHES = {"conv3x3": 0, "conv3x3_dgrad": 0}
 # The same launches by what each computed: (kernel, dtype, N, H, W, C_in, C_out, pad), the
 # kernel a key of LAUNCHES, H and W the input's, the channels unpadded.
 SHAPES: collections.Counter = collections.Counter()
@@ -73,13 +86,14 @@ def _ceil(a: int, b: int) -> int:
     return -(-a // b)
 
 
-def channels_stored(c: int) -> int:
-    """The channel stride of a bf16 operand the wrapper has to copy (its
-    pixel stride is not a multiple of 8): whole 128-byte rows, so that no
-    64-channel box row straddles two of them (`chip_conv_sweep.py`, H100:
-    K3 at 513 -> 256 @ 256^2 took 0.266 ms on an activation stored 520 wide,
-    0.248 ms at 576). A count that needs no copy is kept."""
-    return c if c % 8 == 0 else _ceil(c, _CHUNK) * _CHUNK
+def channels_stored(c: int, elem: int = 2) -> int:
+    """The channel stride of an operand of `elem`-byte channels (2: bf16,
+    4: fp32) that the wrapper has to copy (its pixel stride is not a
+    multiple of 16 bytes): whole 128-byte rows, so that no box row straddles
+    two of them (`chip_conv_sweep.py`, H100: bf16 K3 at 513 -> 256 @ 256^2
+    took 0.266 ms on an activation stored 520 wide, 0.248 ms at 576). A
+    count that needs no copy is kept."""
+    return c if (c * elem) % 16 == 0 else _ceil(c, 128 // elem) * (128 // elem)
 
 
 @dataclass(frozen=True)
@@ -89,7 +103,8 @@ class TilePlan:
 
     The output pixels (B, Ho, Wo) are cut into tiles of box_w x box_h pixels
     of one image, numbered x fastest, then y, then image. Input channels are
-    read 64 at a time (`kchunks` chunks), zero past `c`. K3 gives a block
+    read `chunk` at a time (`kchunks` chunks; 64 in bf16, 32 for K3's TF32
+    path: one 128-byte row either way), zero past `c`. K3 gives a block
     one tile and `bn` output channels and loops over (tap, chunk); K4 gives
     a block two (tap, chunk) items (`k4_items`), `bn` output channels and
     a split of `tiles_per_split` consecutive tiles, and loops over the
@@ -114,6 +129,7 @@ class TilePlan:
     splits: int = 1
     tiles_per_split: int = 0
     flush_tiles: int = 0
+    chunk: int = _CHUNK
 
     @property
     def ho(self) -> int:
@@ -136,16 +152,20 @@ class TilePlan:
         return self.b * self.tiles_x * self.tiles_y
 
     @property
+    def elem(self) -> int:
+        return 128 // self.chunk
+
+    @property
     def c_store(self) -> int:
-        return channels_stored(self.c)
+        return channels_stored(self.c, self.elem)
 
     @property
     def o_store(self) -> int:
-        return channels_stored(self.o)
+        return channels_stored(self.o, self.elem)
 
     @property
     def kchunks(self) -> int:
-        return _ceil(self.c, _CHUNK)
+        return _ceil(self.c, self.chunk)
 
     @property
     def n_tiles(self) -> int:
@@ -182,7 +202,7 @@ class TilePlan:
         zero-filled by TMA: that is the padding."""
         b, oy0, ox0 = self.tile_origin(t)
         ky, kx = divmod(tap, 3)
-        return chunk * _CHUNK, ox0 + kx - self.pad, oy0 + ky - self.pad, b
+        return chunk * self.chunk, ox0 + kx - self.pad, oy0 + ky - self.pad, b
 
 
 def _pick_box(ho: int, wo: int, pixels: int) -> tuple[int, int]:
@@ -200,18 +220,23 @@ def _pick_box(ho: int, wo: int, pixels: int) -> tuple[int, int]:
 
 
 @functools.lru_cache(maxsize=512)
-def k3_plan(b: int, h: int, w: int, c: int, o: int, pad: int, sms: int = 132) -> TilePlan:
-    """The tile plan of a bf16 K3 launch on x (b, c, h, w) with o outputs:
+def k3_plan(b: int, h: int, w: int, c: int, o: int, pad: int, sms: int = 132,
+            elem: int = 2) -> TilePlan:
+    """The tile plan of a K3 launch on x (b, c, h, w) with o outputs, of
+    `elem`-byte operands (2: the bf16 kernel; 4: the TF32 one, which reads
+    32 channels a K step where bf16 reads 64, in boxes of the same bytes):
     tiles of 128 pixels, and the output-tile width that takes the fewest
     waves of blocks on `sms` SMs weighed by a block's time, about bn + 53
-    (fitted to `chip_conv_sweep.py` at 256 -> 256 @ 128^2 on the H100:
-    28.6, 17.4 and 14.3 us a wave of blocks 256, 128 and 64 wide)."""
+    (fitted to `chip_conv_sweep.py` at 256 -> 256 @ 128^2 on the H100 in
+    bf16: 28.6, 17.4 and 14.3 us a wave of blocks 256, 128 and 64 wide; a
+    TF32 step moves the same bytes for half the products at half the
+    rate, so the same weights hold)."""
     ho, wo = h + 2 * pad - 2, w + 2 * pad - 2
     box_w, box_h = _pick_box(ho, wo, _K3_PIXELS)
     tiles = b * _ceil(wo, box_w) * _ceil(ho, box_h)
     bn = min(_K3_WIDTHS, key=lambda n: (_ceil(tiles * _ceil(o, n), sms) * (n + 53),
                                         _ceil(o, n) * n, -n))
-    return TilePlan(b, h, w, c, o, pad, box_w, box_h, bn)
+    return TilePlan(b, h, w, c, o, pad, box_w, box_h, bn, chunk=128 // elem)
 
 
 @functools.lru_cache(maxsize=512)
@@ -298,6 +323,33 @@ def _check(x, w, pad):
             "do not form a 3x3 conv")
 
 
+def round_tf32(t: torch.Tensor) -> torch.Tensor:
+    """An fp32 tensor rounded to TF32: to nearest, ties to even, at 10
+    mantissa bits (the 13 low bits cleared), by an integer add-and-mask --
+    the TF32 kernel's own rounding of its activation
+    (`csrc/hopper.cuh::round_tf32`), bit for bit."""
+    i = t.view(torch.int32)
+    return ((i + ((i >> 13) & 1) + 0xFFF) & -0x2000).view(torch.float32)
+
+
+def k3_path(device_type: str, dtype: torch.dtype, allow_tf32: bool) -> str:
+    """Which K3 a call runs: "plain" on the CPU; on CUDA "bf16" for bf16,
+    and for fp32 "tf32" where `torch.backends.cudnn.allow_tf32` is set (the
+    flag that sends cuDNN's fp32 convolutions to TF32), else "f32", the
+    exact CUDA-core kernel."""
+    if device_type != "cuda":
+        return "plain"
+    if dtype == torch.bfloat16:
+        return "bf16"
+    if dtype != torch.float32:
+        raise TypeError(f"conv3x3: dtype {dtype} is not bf16 or fp32")
+    return "tf32" if allow_tf32 else "f32"
+
+
+def _path(x: torch.Tensor) -> str:
+    return k3_path(x.device.type, x.dtype, torch.backends.cudnn.allow_tf32)
+
+
 def _nhwc_padded(t: torch.Tensor, channels: int) -> torch.Tensor:
     """(B, C, H, W) -> contiguous (B, H, W, channels), zero-padded channels;
     no copy for a channels-last tensor that needs no padding (the fp32
@@ -308,25 +360,31 @@ def _nhwc_padded(t: torch.Tensor, channels: int) -> torch.Tensor:
 
 
 def _tma_operand(t: torch.Tensor) -> torch.Tensor:
-    """A (B, C, H, W) bf16 tensor as the (B, H, W, C) view a bf16 kernel
-    reads: channels contiguous, other strides multiples of 8 elements, 16-byte
-    aligned. A channels-last tensor with C a multiple of 8 is itself that
-    view; anything else is copied into a `channels_stored(C)`-wide buffer,
-    whose channels past C are never read."""
+    """A (B, C, H, W) bf16 or fp32 tensor as the (B, H, W, C) view a TMA
+    kernel reads: channels contiguous, other strides multiples of 16 bytes,
+    16-byte aligned. A channels-last tensor whose C channels fill whole 16
+    bytes is itself that view; anything else is copied into a
+    `channels_stored(C)`-wide buffer, whose channels past C are never read."""
     th = t.permute(0, 2, 3, 1)
-    if th.stride(3) == 1 and all(st % 8 == 0 for st in th.stride()[:3]) \
+    per16 = 16 // t.element_size()
+    if th.stride(3) == 1 and all(st % per16 == 0 for st in th.stride()[:3]) \
             and th.data_ptr() % 16 == 0:
         return th
     bsz, h, w, c = th.shape
-    buf = torch.empty((bsz, h, w, channels_stored(c)), device=t.device, dtype=t.dtype)
+    buf = torch.empty((bsz, h, w, channels_stored(c, t.element_size())), device=t.device,
+                      dtype=t.dtype)
     buf[..., :c].copy_(th)
     return buf[..., :c]
 
 
-def _weight_operand(w: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
-    """(O, C, 3, 3) -> (O, 3, 3, channels_stored(C)) in `dtype`, one copy."""
+def _weight_operand(w: torch.Tensor, dtype: torch.dtype, tf32: bool = False) -> torch.Tensor:
+    """(O, C, 3, 3) -> (O, 3, 3, channels_stored(C)) in `dtype`, one copy;
+    with `tf32` rounded to TF32 first."""
+    if tf32:
+        w = round_tf32(w.to(dtype))
     o, c = w.shape[:2]
-    out = torch.empty((o, 3, 3, channels_stored(c)), device=w.device, dtype=dtype)
+    out = torch.empty((o, 3, 3, channels_stored(c, dtype.itemsize)), device=w.device,
+                      dtype=dtype)
     out[..., :c].copy_(w.permute(0, 2, 3, 1))
     return out
 
@@ -339,27 +397,34 @@ def _strides(th: torch.Tensor) -> tuple[int, int, int]:
 def _conv(x, w, b, pad, counter, xh=None):
     """K3 for a CUDA tensor, the plain version for a CPU one; no autograd.
     `xh`: x as `_tma_operand` gives it, where the caller has it already."""
-    if not x.is_cuda:
+    path = _path(x)
+    if path == "plain":
         return conv3x3_plain(x, w, b, pad)
-    if x.dtype not in _DTYPES:
-        raise TypeError(f"conv3x3: dtype {x.dtype} is not bf16 or fp32")
     bsz, c, h, wd = x.shape
     o = w.shape[0]
     ho, wo = h + 2 * pad - 2, wd + 2 * pad - 2
     stream = _stream(x)
-    if x.dtype == torch.bfloat16:
-        p = k3_plan(bsz, h, wd, c, o, pad, _sm_count(x.device.index))
+    if path in ("bf16", "tf32"):
+        # TF32 is the bf16 design on fp32 operands, 32 channels a K step: the
+        # weight is rounded to TF32 here, the activation in the kernel.
+        tf32 = path == "tf32"
+        p = k3_plan(bsz, h, wd, c, o, pad, _sm_count(x.device.index), x.element_size())
         xh = _tma_operand(x) if xh is None else xh
-        wk = _weight_operand(w, x.dtype)
-        # The kernel adds a bf16 bias as it is (it converts exactly), any
-        # other in fp32.
+        wk = _weight_operand(w, x.dtype, tf32)
+        # The bf16 kernel adds a bf16 bias as it is (it converts exactly),
+        # any other in fp32.
+        bias_bf16 = not tf32 and b is not None and b.dtype == torch.bfloat16
         bias = None if b is None else b.to(
-            device=x.device, dtype=b.dtype if b.dtype == torch.bfloat16 else torch.float32)
+            device=x.device, dtype=torch.bfloat16 if bias_bf16 else torch.float32).contiguous()
         ys = torch.empty((bsz, ho, wo, p.o_store), device=x.device, dtype=x.dtype)
-        err = _build.library().jp_conv3x3_fwd_bf16(
-            xh.data_ptr(), wk.data_ptr(), None if bias is None else bias.contiguous().data_ptr(),
-            ys.data_ptr(), bsz, h, wd, c, *_strides(xh), wk.shape[3], o, p.o_store, pad,
-            p.box_w, p.box_h, p.bn, int(b is not None and b.dtype == torch.bfloat16), stream)
+        args = (xh.data_ptr(), wk.data_ptr(), None if bias is None else bias.data_ptr(),
+                ys.data_ptr(), bsz, h, wd, c, *_strides(xh), wk.shape[3], o, p.o_store, pad,
+                p.box_w, p.box_h, p.bn)
+        if tf32:
+            err = _build.library().jp_conv3x3_fwd_tf32(*args, stream)
+            TF32_LAUNCHES[counter] += 1
+        else:
+            err = _build.library().jp_conv3x3_fwd_bf16(*args, int(bias_bf16), stream)
         y = ys.permute(0, 3, 1, 2)
         y = y[:, :o] if p.o_store != o else y
     else:
@@ -451,10 +516,11 @@ class _Conv3x3(torch.autograd.Function):
     def forward(ctx, x, w, b, pad):
         ctx.pad = pad
         ctx.bias_dtype = None if b is None else b.dtype
-        # bf16 on the card: the operand K3 reads is the one K4 reads in the
-        # backward, so a copy made for TMA (the 513-channel concat) is made
-        # once and saved instead of x.
-        xh = _tma_operand(x) if x.is_cuda and x.dtype == torch.bfloat16 else None
+        # bf16 and TF32 on the card: a copy made for TMA (the 513-channel
+        # concat) is made once and saved instead of x; bf16's K4 reads it in
+        # the backward as it is.
+        ctx.nhwc = _path(x) in ("bf16", "tf32")
+        xh = _tma_operand(x) if ctx.nhwc else None
         ctx.save_for_backward(x if xh is None else xh, w)
         return _conv(x, w, b, pad, "conv3x3", xh)
 
@@ -463,15 +529,19 @@ class _Conv3x3(torch.autograd.Function):
         x, w = ctx.saved_tensors
         pad = ctx.pad
         dx = dw = db = None
-        nhwc = x.is_cuda and x.dtype == torch.bfloat16
         dtype = x.dtype
         if ctx.needs_input_grad[0]:
-            # (O, C, ky, kx) -> (C, O, 2-ky, 2-kx): the data-grad is a conv.
+            # (O, C, ky, kx) -> (C, O, 2-ky, 2-kx): the data-grad is a conv,
+            # on the path the flags give at this call.
             wt = w.flip(2, 3).transpose(0, 1)
             dx = _conv(g.to(dtype), wt.to(dtype), None, 2 - pad, "conv3x3_dgrad")
         if ctx.needs_input_grad[1]:
             gd = g.to(dtype)
-            dw = (_wgrad_bf16(x, gd, pad) if nhwc else conv3x3_wgrad(x, gd, pad)).to(w.dtype)
+            if ctx.nhwc and dtype == torch.bfloat16:
+                dw = _wgrad_bf16(x, gd, pad)
+            else:
+                dw = conv3x3_wgrad(x.permute(0, 3, 1, 2) if ctx.nhwc else x, gd, pad)
+            dw = dw.to(w.dtype)
         if ctx.bias_dtype is not None and ctx.needs_input_grad[2]:
             db = g.float().sum((0, 2, 3)).to(ctx.bias_dtype)
         return dx, dw, db, None

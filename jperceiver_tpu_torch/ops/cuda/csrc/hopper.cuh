@@ -1,6 +1,6 @@
 // Hopper (sm_90a) building blocks shared by the 3x3-conv kernels K3 and K4: TMA tile
-// loads behind mbarriers, wgmma on 128-byte-swizzled shared-memory tiles, and the
-// host-side encoding of TMA tensor maps.
+// loads behind mbarriers, wgmma on 128-byte-swizzled shared-memory tiles (bf16; tf32 with A
+// from registers), and the host-side encoding of TMA tensor maps.
 //
 // Everything is raw PTX, so the sources build in seconds and need no CUTLASS. The
 // tensor maps are encoded with the driver's `cuTensorMapEncodeTiled`, reached through
@@ -266,6 +266,146 @@ __device__ __forceinline__ void wgmma_m64k16(float (&d)[N / 2], uint64_t da, uin
   }
 }
 
+// TF32 (K3's float32 path): fp32 rounded to nearest, ties to even, at 10 mantissa bits --
+// the 13 low bits cleared -- with the integer add-and-mask of the port's `round_tf32`
+// (`ops/cuda/conv3x3.py`), bit for bit, NaN and infinities included. Fed unrounded fp32 bits,
+// the tensor cores would drop the low bits: a rounding toward zero.
+__device__ __forceinline__ uint32_t round_tf32(uint32_t i) {
+  return (i + 0xFFFu + ((i >> 13) & 1u)) & 0xFFFFE000u;
+}
+
+// ldmatrix.x4 of 8x8 b16 matrices, read as 8x4 fp32 ones: lane l gives the 16-byte row
+// l % 8 of matrix l / 8, and receives, of matrix j, the element (row l / 4, column l % 4)
+// in r[j].
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t saddr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(saddr)
+               : "memory");
+}
+
+// Pin registers an asynchronous wgmma reads (its A fragment) until this point of the
+// program, so that the compiler gives them to nothing else before its wait_group.
+template <int R>
+__device__ __forceinline__ void fence_operand(uint32_t (&a)[R]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) asm volatile("" : "+r"(a[i])::"memory");
+}
+
+// wgmma.mma_async m64nNk8, tf32 A from registers and tf32 B from shared memory (K-major:
+// tf32 takes no other layout), fp32 accumulators (d += A.B), laid out as the bf16 forms'.
+// Thread t of the warpgroup holds A's rows 16*(t/32) + (t%32)/4 (a[0], a[2]) and that + 8
+// (a[1], a[3]), columns t%4 (a[0], a[1]) and t%4 + 4 (a[2], a[3]).
+__device__ __forceinline__ void wgmma_m64n64k8_tf32(float (&d)[32], const uint32_t (&a)[4],
+                                                     uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_m64n128k8_tf32(float (&d)[64], const uint32_t (&a)[4],
+                                                     uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_m64n176k8_tf32(float (&d)[88], const uint32_t (&a)[4],
+                                                     uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %93, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n176k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63,"
+      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79,"
+      "%80, %81, %82, %83, %84, %85, %86, %87"
+      "}, {%88, %89, %90, %91}, %92, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_m64n256k8_tf32(float (&d)[128], const uint32_t (&a)[4],
+                                                     uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63,"
+      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79,"
+      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95,"
+      "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111,"
+      "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127"
+      "}, {%128, %129, %130, %131}, %132, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
+        "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
+        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
+        "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
+        "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_m64k8_tf32(float (&d)[N / 2], const uint32_t (&a)[4],
+                                                 uint64_t db) {
+  if constexpr (N == 64) {
+    wgmma_m64n64k8_tf32(d, a, db);
+  } else if constexpr (N == 128) {
+    wgmma_m64n128k8_tf32(d, a, db);
+  } else if constexpr (N == 176) {
+    wgmma_m64n176k8_tf32(d, a, db);
+  } else {
+    static_assert(N == 256, "wgmma width");
+    wgmma_m64n256k8_tf32(d, a, db);
+  }
+}
+
 // ---------------------------------------------------------------------------------
 // Host side
 // ---------------------------------------------------------------------------------
@@ -291,15 +431,17 @@ inline EncodeTiledFn encode_tiled_fn() {
   return fn;
 }
 
-// A bf16 tensor map of `rank` dimensions (innermost first, the innermost contiguous),
-// strides in bytes of dimensions 1.., read in boxes of `box` elements with the 128-byte
-// swizzle and zeros outside the tensor. False if the driver refuses it.
-inline bool encode_bf16_map(CUtensorMap* map, const void* base, int rank, const uint64_t* dims,
-                            const uint64_t* strides, const uint32_t* box) {
+// A bf16 (or, with `f32`, fp32) tensor map of `rank` dimensions (innermost first, the
+// innermost contiguous), strides in bytes of dimensions 1.., read in boxes of `box` elements
+// with the 128-byte swizzle and zeros outside the tensor. False if cuTensorMapEncodeTiled
+// refuses it.
+inline bool encode_map(CUtensorMap* map, const void* base, int rank, const uint64_t* dims,
+                            const uint64_t* strides, const uint32_t* box, bool f32 = false) {
   const EncodeTiledFn fn = encode_tiled_fn();
   if (fn == nullptr) return false;
   const cuuint32_t elem_strides[5] = {1, 1, 1, 1, 1};
-  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, static_cast<cuuint32_t>(rank),
+  return fn(map, f32 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+            static_cast<cuuint32_t>(rank),
             const_cast<void*>(base), reinterpret_cast<const cuuint64_t*>(dims),
             reinterpret_cast<const cuuint64_t*>(strides), reinterpret_cast<const cuuint32_t*>(box),
             elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
@@ -307,16 +449,19 @@ inline bool encode_bf16_map(CUtensorMap* map, const void* base, int rank, const 
 }
 
 // A channels-last bf16 activation (B, H, W, C) as a 4-D tensor map (C, W, H, B), read in
-// boxes of 64 channels x box_w x box_h pixels of one image. The channels are contiguous;
-// sw, sh and sb are the pixel, row and image strides in elements, multiples of 8 (TMA wants
-// 16-byte strides), so a channel-padded buffer or a channel slice of a wider tensor is read
-// in place: channels past C arrive as zeros whatever the memory holds.
+// boxes of 64 channels x box_w x box_h pixels of one image; with `f32`, an fp32 one in boxes
+// of 32 channels (128 bytes either way). The channels are contiguous; sw, sh and sb are the
+// pixel, row and image strides in elements, multiples of 16 bytes (TMA wants no other), so a
+// channel-padded buffer or a channel slice of a wider tensor is read in place: channels past
+// C arrive as zeros whatever the memory holds.
 inline bool encode_nhwc_map(CUtensorMap* map, const void* base, int B, int H, int W, int C,
-                            long long sw, long long sh, long long sb, int box_w, int box_h) {
+                            long long sw, long long sh, long long sb, int box_w, int box_h,
+                            bool f32 = false) {
+  const uint64_t e = f32 ? 4 : 2;
   const uint64_t dims[4] = {(uint64_t)C, (uint64_t)W, (uint64_t)H, (uint64_t)B};
-  const uint64_t strides[3] = {2ull * sw, 2ull * sh, 2ull * sb};
-  const uint32_t box[4] = {64u, (uint32_t)box_w, (uint32_t)box_h, 1u};
-  return encode_bf16_map(map, base, 4, dims, strides, box);
+  const uint64_t strides[3] = {e * sw, e * sh, e * sb};
+  const uint32_t box[4] = {(uint32_t)(128 / e), (uint32_t)box_w, (uint32_t)box_h, 1u};
+  return encode_map(map, base, 4, dims, strides, box, f32);
 }
 
 // The same activation as a 5-D map (64 channels, W, H, C / 64 chunks, B), the chunks 128
@@ -330,12 +475,13 @@ inline bool encode_nhwc_pair_map(CUtensorMap* map, const void* base, int B, int 
   const uint64_t dims[5] = {64u, (uint64_t)W, (uint64_t)H, (uint64_t)(C / 64), (uint64_t)B};
   const uint64_t strides[4] = {2ull * sw, 2ull * sh, 128ull, 2ull * sb};
   const uint32_t box[5] = {64u, (uint32_t)box_w, (uint32_t)box_h, 2u, 1u};
-  return encode_bf16_map(map, base, 5, dims, strides, box);
+  return encode_map(map, base, 5, dims, strides, box);
 }
 
-// Whether the strides suit a tensor map: positive multiples of 8 elements (16 bytes).
-inline bool tma_strides(long long sw, long long sh, long long sb) {
-  return sw > 0 && sh > 0 && sb > 0 && sw % 8 == 0 && sh % 8 == 0 && sb % 8 == 0;
+// Whether the strides suit a tensor map: positive multiples of 16 bytes, `per16` elements
+// (8 bf16, 4 fp32).
+inline bool tma_strides(long long sw, long long sh, long long sb, int per16 = 8) {
+  return sw > 0 && sh > 0 && sb > 0 && sw % per16 == 0 && sh % per16 == 0 && sb % per16 == 0;
 }
 
 }  // namespace jp

@@ -1,8 +1,8 @@
-"""The bf16 K3/K4 tile plans replayed on the CPU.
+"""The K3/K4 tile plans replayed on the CPU.
 
-On the card the bf16 kernels read every operand as TMA boxes: for K3, per
-output tile and (tap, 64-channel chunk), one box of the activation and one
-of the weight; for K4, per 128-pixel tile of a split, one box of the
+On the card the bf16 kernels and K3's TF32 path read every operand as TMA
+boxes: for K3, per output tile and (tap, channel chunk: 64 in bf16, 32 in
+TF32), one box of the activation and one of the weight; for K4, per 128-pixel tile of a split, one box of the
 activation for each of a block's (tap, chunk) items (two adjacent whole
 chunks of one tap in one load) and the cotangent's boxes. `k3_plan` and
 `k4_plan` say which boxes, and the kernels compute the same coordinates
@@ -16,7 +16,9 @@ Shapes: the nine K3 site shapes of the 1024^2 step (channels as they are,
 extents / 8), each as the forward and as the data-grad (pad 2 - pad, the
 channels swapped), and small shapes whose extents leave tail tiles, at pads
 0, 1 and 2, with B = 2. The K4 replay is also held to the JAX package's
-`_wgrad` on the same numpy inputs.
+`_wgrad` on the same numpy inputs. K3's TF32 plan is replayed on operands
+rounded as the TF32 kernel rounds them, against the plain version of the
+rounded operands.
 """
 
 import functools
@@ -26,7 +28,8 @@ import pytest
 import torch
 
 from jperceiver_tpu_torch.ops.cuda.conv3x3 import (K4_CHAIN, conv3x3_plain,
-                                                   conv3x3_wgrad_plain, k3_plan, k4_plan)
+                                                   conv3x3_wgrad_plain, k3_plan, k4_plan,
+                                                   round_tf32)
 
 _CHUNK = 64
 
@@ -69,8 +72,9 @@ def replay_k3(x, w, bias, pad, plan):
     """K3 computed box by box as `plan` has the kernel read and write it."""
     xs = _nhwc(x, plan.c_store)
     # The weight as the kernel's (C, 9, O) tensor map (innermost first), read
-    # in (64, 1, bn) boxes at (c0, tap, n0): here a (1, O, 9, C) tensor.
+    # in (chunk, 1, bn) boxes at (c0, tap, n0): here a (1, O, 9, C) tensor.
     wk = _nhwc(w, plan.c_store).reshape(1, plan.o, 9, plan.c_store)
+    width = plan.chunk
     y = torch.full((plan.b, plan.ho, plan.wo, plan.o_store), float("nan"))
     rows = plan.box_w * plan.box_h
     for t in range(plan.tiles):
@@ -80,9 +84,9 @@ def replay_k3(x, w, bias, pad, plan):
             acc = torch.zeros(rows, plan.bn)
             for tap in range(9):
                 for chunk in range(plan.kchunks):
-                    a = _box(xs, plan.box(t, tap, chunk), _CHUNK, plan.box_w, plan.box_h,
+                    a = _box(xs, plan.box(t, tap, chunk), width, plan.box_w, plan.box_h,
                              plan.c)
-                    wb = _box(wk, (chunk * _CHUNK, tap, n0, 0), _CHUNK, 1, plan.bn, plan.c)
+                    wb = _box(wk, (chunk * width, tap, n0, 0), width, 1, plan.bn, plan.c)
                     acc += a @ wb.T
             cols = torch.arange(n0, n0 + plan.bn)
             acc += torch.where(cols < plan.o, bias[cols.clamp(max=plan.o - 1)], 0.0)
@@ -165,6 +169,14 @@ def _tol(ref):
     return 1e-5 * max(1.0, ref.abs().max().item())
 
 
+def _k3_operands(b, c, o, h, w, pad):
+    rng = np.random.default_rng(c + o + h + pad)
+    x = torch.from_numpy(rng.standard_normal((b, c, h, w)).astype(np.float32))
+    wt = torch.from_numpy((rng.standard_normal((o, c, 3, 3)) / np.sqrt(9 * c)).astype(np.float32))
+    bias = torch.from_numpy(rng.standard_normal(o).astype(np.float32))
+    return x, wt, bias
+
+
 @pytest.mark.parametrize("sms", [132, 1])
 @pytest.mark.parametrize("b,c,o,h,w,pad", list(_k3_cases()))
 def test_k3_plan_replay_matches_plain(b, c, o, h, w, pad, sms):
@@ -174,12 +186,31 @@ def test_k3_plan_replay_matches_plain(b, c, o, h, w, pad, sms):
     plan = k3_plan(b, h, w, c, o, pad, sms)
     assert plan.box_w * plan.box_h == 128 and plan.c_store % 8 == 0 == plan.o_store % 8
     assert plan.kchunks == -(-c // 64)
-    rng = np.random.default_rng(c + o + h + pad)
-    x = torch.from_numpy(rng.standard_normal((b, c, h, w)).astype(np.float32))
-    wt = torch.from_numpy((rng.standard_normal((o, c, 3, 3)) / np.sqrt(9 * c)).astype(np.float32))
-    bias = torch.from_numpy(rng.standard_normal(o).astype(np.float32))
+    x, wt, bias = _k3_operands(b, c, o, h, w, pad)
     ref = conv3x3_plain(x, wt, bias, pad)
     y = replay_k3(x, wt, bias, pad, plan)
+    assert y.shape == ref.shape and torch.isfinite(y).all()
+    assert (y - ref).abs().max().item() <= _tol(ref)
+
+
+@pytest.mark.parametrize("sms", [132, 1])
+@pytest.mark.parametrize("b,c,o,h,w,pad", list(_k3_cases()))
+def test_k3_tf32_plan_replay_matches_plain(b, c, o, h, w, pad, sms):
+    """K3's TF32 plan (fp32 operands, 32-channel chunks: one 128-byte box
+    row): the same boxes of half the channels, operands stored in whole
+    16 bytes (4 channels) or else whole 128-byte rows. The replay rounds x
+    and the weight as the kernel and the wrapper do, and is held to the
+    plain version of the rounded operands."""
+    plan = k3_plan(b, h, w, c, o, pad, sms, elem=4)
+    assert plan.chunk == 32 and plan.kchunks == -(-c // 32)
+    assert plan.box_w * plan.box_h == 128 and plan.c_store % 4 == 0 == plan.o_store % 4
+    assert plan.c_store == c or plan.c_store == -(-c // 32) * 32
+    bf16 = k3_plan(b, h, w, c, o, pad, sms)
+    assert (plan.box_w, plan.box_h, plan.bn) == (bf16.box_w, bf16.box_h, bf16.bn)
+    x, wt, bias = _k3_operands(b, c, o, h, w, pad)
+    xr, wr = round_tf32(x), round_tf32(wt)
+    ref = conv3x3_plain(xr, wr, bias, pad)
+    y = replay_k3(xr, wr, bias, pad, plan)
     assert y.shape == ref.shape and torch.isfinite(y).all()
     assert (y - ref).abs().max().item() <= _tol(ref)
 
@@ -253,6 +284,14 @@ def test_plans_at_the_step_sites():
     p = k3_plan(1, 256, 256, 256, 513, 2)  # iconv's data-grad: 513 outputs stored 576
     assert (p.o_store, p.bn, p.n_tiles, p.c_store) == (576, 176, 3, 256)
     assert p.box_w * p.box_h == 128 and p.tiles * 128 < 1.1 * 258 * 258
+    # TF32: the same tiles, 32 channels a K step; the concat is copied 544
+    # wide (17 chunks), 513 outputs are stored 544 wide.
+    p = k3_plan(1, 258, 258, 513, 256, 0, elem=4)
+    assert (p.box_w, p.box_h, p.bn, p.c_store, p.kchunks) == (128, 1, 256, 544, 17)
+    p = k3_plan(1, 256, 256, 256, 513, 2, elem=4)
+    assert (p.o_store, p.bn, p.n_tiles, p.c_store, p.kchunks) == (544, 176, 3, 256, 8)
+    p = k3_plan(1, 256, 256, 64, 64, 1, elem=4)
+    assert (p.box_w, p.box_h, p.bn, p.c_store, p.kchunks) == (128, 1, 64, 64, 2)
     # K4: 128-pixel tiles, at most 128 wide (the second fp32 sum in
     # registers), its accumulator added into that sum every K4_CHAIN wgmma
     # (16 pixels each: 2 tiles), and the pixels split so that waves x
