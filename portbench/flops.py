@@ -84,11 +84,9 @@ def count(model_cfg: dict, spec: dict) -> WorkRecord:
     """The record of one unit: `spec` {"mode": "train", "batch"},
     {"mode": "eval", "batch"} or {"mode": "stream", "frames"}."""
     from portbench.reference import losses as L
-    from portbench.reference.model import ReferenceModel
+    from portbench.reference.train import meta_model
 
-    branches = "both" if model_cfg["type"] == "Argo_both" else "road"
-    with torch.device("meta"):
-        model = ReferenceModel(model_cfg["occ_map_size"], branches, tuple(model_cfg["frame_ids"]))
+    model = meta_model(model_cfg)
     rec = WorkRecord()
     mode = spec["mode"]
     h, w = model_cfg["height"], model_cfg["width"]

@@ -165,18 +165,56 @@ class BasicBlock(nn.Module):
         return F.relu(y + (x if self.downsample is None else self.downsample(x)))
 
 
-class ResNet18(nn.Module):
-    """The five-level pyramid [stem, layer1..layer4] of a ResNet-18."""
+class Bottleneck(nn.Module):
+    """1x1, 3x3 carrying the stride, 1x1 to four times the width, each
+    followed by BatchNorm (torchvision's v1.5 layout)."""
 
-    def __init__(self, in_channels=3):
+    def __init__(self, c_in, width, stride):
         super().__init__()
+        out = 4 * width
+        self.conv1 = Conv2d(c_in, width, 1, bias=False)
+        self.bn1 = BatchNorm2d(width)
+        self.conv2 = Conv2d(width, width, 3, stride, 1, bias=False)
+        self.bn2 = BatchNorm2d(width)
+        self.conv3 = Conv2d(width, out, 1, bias=False)
+        self.bn3 = BatchNorm2d(out)
+        self.downsample = None
+        if stride != 1 or c_in != out:
+            self.downsample = nn.Sequential(Conv2d(c_in, out, 1, stride, bias=False),
+                                            BatchNorm2d(out))
+
+    def forward(self, x):
+        y = F.relu(self.bn1(self.conv1(x)))
+        y = F.relu(self.bn2(self.conv2(y)))
+        y = self.bn3(self.conv3(y))
+        return F.relu(y + (x if self.downsample is None else self.downsample(x)))
+
+
+# Blocks a stage of each depth (He et al. 2016, arXiv:1512.03385, table 1).
+STAGES = {18: (2, 2, 2, 2), 34: (3, 4, 6, 3), 50: (3, 4, 6, 3), 101: (3, 4, 23, 3)}
+
+
+def pyramid(depth: int) -> tuple[int, ...]:
+    """The channels of the five levels [stem, layer1..layer4]: basic blocks
+    below 50, bottlenecks four times as wide from 50 on."""
+    return (64, 64, 128, 256, 512) if depth < 50 else (64, 256, 512, 1024, 2048)
+
+
+class ResNet(nn.Module):
+    """The five-level pyramid [stem, layer1..layer4] of a ResNet of
+    `depth` 18, 34, 50 or 101."""
+
+    def __init__(self, depth=18, in_channels=3):
+        super().__init__()
+        block = BasicBlock if depth < 50 else Bottleneck
         self.conv1 = Conv2d(in_channels, 64, 7, 2, 3, bias=False)
         self.bn1 = BatchNorm2d(64)
         c = 64
-        for i, width in enumerate((64, 128, 256, 512)):
-            blocks = [BasicBlock(c if j == 0 else width, width, 2 if i > 0 and j == 0 else 1)
-                      for j in range(2)]
-            c = width
+        for i, (width, out, n) in enumerate(zip((64, 128, 256, 512), pyramid(depth)[1:],
+                                                 STAGES[depth])):
+            blocks = [block(c if j == 0 else out, width, 2 if i > 0 and j == 0 else 1)
+                      for j in range(n)]
+            c = out
             self.add_module(f"layer{i + 1}", nn.Sequential(*blocks))
 
     def forward(self, x):
@@ -190,9 +228,9 @@ class ResNet18(nn.Module):
 
 
 class _Holder(nn.Module):
-    def __init__(self, in_channels=3):
+    def __init__(self, depth=18, in_channels=3):
         super().__init__()
-        self.encoder = ResNet18(in_channels)
+        self.encoder = ResNet(depth, in_channels)
 
 
 class DepthEncoder(_Holder):
@@ -201,8 +239,8 @@ class DepthEncoder(_Holder):
 
 
 class PoseEncoder(_Holder):
-    def __init__(self):
-        super().__init__(6)
+    def __init__(self, depth=18):
+        super().__init__(depth, 6)
 
     def forward(self, pair):
         return self.encoder((pair - 0.45) / 0.225)
@@ -233,9 +271,9 @@ def resize_bilinear(img, h, w):
 
 
 class DepthDecoder(nn.Module):
-    def __init__(self, bottleneck=256):
+    def __init__(self, depth=18, bottleneck=256):
         super().__init__()
-        enc = (64, 64, 128, 256, 512)
+        enc = pyramid(depth)
         for i in (4, 3, 2, 1):
             c_red = 512 if i == 4 else bottleneck
             self.add_module(f"reduce{i}", Conv1x1(enc[i], c_red))
@@ -261,9 +299,9 @@ class DepthDecoder(nn.Module):
 
 
 class PoseDecoder(nn.Module):
-    def __init__(self):
+    def __init__(self, depth=18):
         super().__init__()
-        self.reduce = Conv2d(512, 256, 1)
+        self.reduce = Conv2d(pyramid(depth)[-1], 256, 1)
         self.conv1 = Conv2d(256, 256, 3, 1, 1)
         self.conv2 = Conv2d(256, 256, 3, 1, 1)
         self.conv3 = Conv2d(256, 6, 1)
@@ -276,10 +314,10 @@ class PoseDecoder(nn.Module):
 
 
 class LayoutEncoder(nn.Module):
-    def __init__(self):
+    def __init__(self, depth=18):
         super().__init__()
-        self.resnet_encoder = _Holder()
-        self.conv1 = ConvReflect3x3(512, 128)
+        self.resnet_encoder = _Holder(depth)
+        self.conv1 = ConvReflect3x3(pyramid(depth)[-1], 128)
         self.conv2 = ConvReflect3x3(128, 128)
 
     def forward(self, img):
@@ -398,24 +436,27 @@ def transformation_from_parameters(axisangle, translation, invert=False):
 
 
 class ReferenceModel(nn.Module):
-    """The JPerceiver forward: `branches` "road" or "both"; outputs fp32
-    under the model's keys. `remat` checkpoints the trunks in training
-    (the same function, less memory)."""
+    """The JPerceiver forward: `branches` "road" or "both"; the ResNet
+    depths of the depth and layout trunks (`depth_layers`) and of the pose
+    trunk (`pose_layers`); outputs fp32 under the model's keys. `remat`
+    checkpoints the trunks in training (the same function, less memory)."""
 
-    def __init__(self, occ_map_size=256, branches="both", frame_ids=(0, -1, 1), remat=False):
+    def __init__(self, occ_map_size=256, branches="both", frame_ids=(0, -1, 1), remat=False,
+                 depth_layers=18, pose_layers=18):
         super().__init__()
         self.frame_ids = tuple(frame_ids)
         self.branches = branches
         self.remat = remat
-        self.DepthEncoder = DepthEncoder()
-        self.DepthDecoder = DepthDecoder()
-        self.PoseEncoder = PoseEncoder()
-        self.PoseDecoder = PoseDecoder()
-        self.LayoutEncoder = LayoutEncoder()
+        self.DepthEncoder = DepthEncoder(depth_layers)
+        self.DepthDecoder = DepthDecoder(depth_layers)
+        self.PoseEncoder = PoseEncoder(pose_layers)
+        self.PoseDecoder = PoseDecoder(pose_layers)
+        self.LayoutEncoder = LayoutEncoder(depth_layers)
         self.suffixes = {"road": ("",), "both": ("", "B")}[branches]
         for s in self.suffixes:
             self.add_module(f"CycledViewProjection{s}", CycledViewProjection(occ_map_size // 32))
-            self.add_module(f"CrossViewTransformer{s}", CrossViewTransformer())
+            self.add_module(f"CrossViewTransformer{s}",
+                            CrossViewTransformer(depth_channels=pyramid(depth_layers)[-1]))
             self.add_module(f"LayoutDecoder{s}", LayoutDecoder())
             self.add_module(f"LayoutTransformDecoder{s}", LayoutDecoder())
 

@@ -13,7 +13,7 @@ import contextlib
 import torch
 
 from . import losses as L
-from .model import ReferenceModel, transformation_from_parameters
+from .model import STAGES, ReferenceModel, transformation_from_parameters
 
 
 def first_output_keys(frame_ids) -> tuple:
@@ -23,13 +23,48 @@ def first_output_keys(frame_ids) -> tuple:
             *(f"cam_T_cam/{f}" for f in frame_ids[1:]))
 
 
+def structure(model_cfg: dict) -> tuple[int, int, str]:
+    """(depth_layers, pose_layers, branches) of a model configuration, read
+    as the program's `JPerceiver.from_config` reads them: each ResNet depth
+    from `depth_num_layers` and `pose_num_layers`, 18 where absent; with
+    `skip_inactive_branch` (true where absent) the branch that the `type`
+    has losses for ("road" for the static types, "vehicle" for the dynamic
+    ones, "both" for any other), else both. Raises ValueError, naming the
+    key, where the reference cannot compute what the configuration asks
+    for: a depth outside `STAGES`, or the vehicle branch alone (the
+    objective has no vehicle-only losses)."""
+    depths = []
+    for key in ("depth_num_layers", "pose_num_layers"):
+        depth = model_cfg.get(key, 18)
+        if depth not in STAGES:
+            raise ValueError(f"{key} = {depth!r}: the reference builds ResNet depths "
+                             f"{sorted(STAGES)}")
+        depths.append(depth)
+    kind = model_cfg.get("type", "static")
+    if not model_cfg.get("skip_inactive_branch", True):
+        branches = "both"
+    elif kind in ("static", "static_raw", "Argo_static"):
+        branches = "road"
+    elif kind in ("dynamic", "Argo_dynamic"):
+        raise ValueError(f"type = {kind!r}: the reference has no losses for the vehicle "
+                         "branch alone")
+    else:
+        branches = "both"
+    return depths[0], depths[1], branches
+
+
+def meta_model(model_cfg: dict, remat: bool = False) -> ReferenceModel:
+    """The reference model of a model configuration on the meta device:
+    shapes, no data."""
+    depth_layers, pose_layers, branches = structure(model_cfg)
+    with torch.device("meta"):
+        return ReferenceModel(model_cfg["occ_map_size"], branches, tuple(model_cfg["frame_ids"]),
+                              remat, depth_layers=depth_layers, pose_layers=pose_layers)
+
+
 def build(model_cfg: dict, weights: dict, device, remat: bool = False) -> ReferenceModel:
     """The reference model of a model configuration with `weights` (fp32)."""
-    branches = "both" if model_cfg["type"] == "Argo_both" else "road"
-    with torch.device("meta"):
-        model = ReferenceModel(model_cfg["occ_map_size"], branches,
-                               tuple(model_cfg["frame_ids"]), remat)
-    model = model.to_empty(device=device)
+    model = meta_model(model_cfg, remat).to_empty(device=device)
     model.load_state_dict(weights, strict=True)
     return model
 
@@ -80,10 +115,7 @@ def calibrated_weights(model_cfg: dict, weights: dict, color_aug: torch.Tensor,
 
 def shapes(model_cfg: dict) -> dict:
     """{name: shape} of the model's state dict."""
-    branches = "both" if model_cfg["type"] == "Argo_both" else "road"
-    with torch.device("meta"):
-        model = ReferenceModel(model_cfg["occ_map_size"], branches)
-    return {k: tuple(v.shape) for k, v in model.state_dict().items()}
+    return {k: tuple(v.shape) for k, v in meta_model(model_cfg).state_dict().items()}
 
 
 class Adam:
