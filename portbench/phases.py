@@ -1,27 +1,35 @@
 """What the program's own tracing shows in a traced slice: device time by
 phase between its phase marks, device idle inside the units' replays,
-idle gaps named by the innermost span that holds them, K3's and K4's
-share of their roofline from the launches the program counted by shape,
-and the set-up seconds the program timed.
+K3's and K4's share of their roofline from the launches the program
+counted by shape, and the set-up seconds the program timed.
 
     python3 -m portbench.phases --workload <cell> --seed <n> [--units <n>]
 
 builds the cell as a run does (its driver, weights and inputs from the
-seed, every shape warmed up), traces `--units` units after a synchronize
-(the traffic's `trace_steps` by default) and prints one JSON object. It
-runs no reference and no window: the end-to-end metrics are `run.py`'s.
+seed, every shape warmed up), traces `--units` units (the traffic's
+`trace_steps` by default) in the slice that a `--trace 1` run traces
+(`run.Slice`), reduces it through the readers' context (`run.
+reader_context`) and prints one JSON object. It runs no reference and
+no window: the end-to-end metrics are `run.py`'s.
 
-The program (`jperceiver_tpu_torch/tracing.py`) marks each phase on the
-device with an empty kernel `jp_mark_<phase>`, also inside a CUDA graph's
-replay; its host spans are `user_annotation` events named `jp.<name>`;
-`ops/cuda.launch_shapes()` counts K3's and K4's launches by shape; and
-`tracing.totals()` holds its timed set-up events. A program without them
-(before they were added) gives None for each reading here.
+What the program traces (`jperceiver_tpu_torch/tracing.py`) and what
+reads it:
 
-`run.py` and `trace.py` do not read these yet; the functions here are
-what their readers would call on the slice's events (with the thread
-ids that `trace.profile_events` drops) and on the difference of
-`launch_shapes()` across the slice.
+- the device marks `jp_mark_<phase>`, empty kernels, also inside a CUDA
+  graph's replay: `Phases` below, read by `train_phase_ms.<phase>`
+  (`forward`, `losses`, `cgt`, `backward`, `update`) and
+  `replay_idle_ms.*`;
+- the host spans `jp.<name>` (`user_annotation` events): `trace.
+  idle_gaps`, which names each idle gap of `breakdown.idle_gaps` by the
+  innermost span that holds it;
+- `ops.cuda.launch_shapes()`, K3's and K4's launches by shape, its
+  difference across the slice (`Context.launch_shapes`):
+  `conv_rooflines` below, read by `k3_roofline.*` and `k4_roofline.*`;
+- `tracing.totals()`, its timed set-up events: `setup_seconds` below,
+  read by `graph_setup_s`.
+
+A program without them gives None for each reading, and a run leaves
+the metric out of its line.
 """
 
 from __future__ import annotations
@@ -29,45 +37,18 @@ from __future__ import annotations
 import bisect
 import collections
 import json
-import os
 import re
 import sys
-import tempfile
 
-from portbench.trace import DEVICE_CATS, _union
+from portbench.trace import _union, device_events
 
 MARK = "jp_mark_"
 # The marks that open a unit (a training step, an eval forward, a
-# streaming chunk); `end` closes it.
+# streaming chunk) where none is open; `end` closes it.
 UNIT_START = ("forward", "eval", "chunk")
 K3_KERNELS = re.compile(r"conv3x3_f32|conv3x3_bf16_wgmma")
 K4_KERNELS = re.compile(r"wgrad_f32|wgrad_bf16_wgmma|sum_splits")
 SETUP_EVENTS = ("graph.eager", "graph.capture", "kernels.build")
-
-
-def profile_events(prof) -> list[dict]:
-    """The trace's complete events as {name, cat, ts, dur, tid}
-    (microseconds)."""
-    fd, path = tempfile.mkstemp(suffix=".json", prefix="portbench_phases_")
-    os.close(fd)
-    try:
-        prof.export_chrome_trace(path)
-        with open(path) as f:
-            raw = json.load(f)
-    finally:
-        os.remove(path)
-    events = raw["traceEvents"] if isinstance(raw, dict) else raw
-    return [{"name": e.get("name", ""), "cat": e.get("cat", ""), "ts": float(e["ts"]),
-             "dur": float(e.get("dur", 0.0)), "tid": e.get("tid")}
-            for e in events if e.get("ph") == "X" and "ts" in e]
-
-
-def _device(events, window=None):
-    dev = [e for e in events if e["cat"] in DEVICE_CATS]
-    if window is not None:
-        t0, t1 = window
-        dev = [e for e in dev if e["ts"] < t1 and e["ts"] + e["dur"] > t0]
-    return sorted(dev, key=lambda e: e["ts"])
 
 
 def _busy(intervals, a: float, b: float) -> float:
@@ -78,18 +59,21 @@ def _busy(intervals, a: float, b: float) -> float:
 class Phases:
     """The marks of a slice (`events`, optionally cut to `window`):
     `marks`, their phase names in device order; `busy_s` {phase: device
-    busy seconds from each of its marks to the next mark, summed};
+    busy seconds from each of its marks to the next mark, summed over the
+    closed units};
     `class_s` {(phase, class): seconds of the device operations that start
     in the phase, by their class in `classes` (`spec.kernel_classes()`)};
     `units`, the units closed by an `end` mark; `unit_s` and
     `unit_idle_s`, the wall and the idle seconds of those units, from the
-    mark that opens each to the end of its `end` mark. None of these where
-    the slice has no mark."""
+    mark that opens each to the end of its `end` mark. A start mark opens a
+    unit only where none is open, so a mark of that name inside a unit
+    splits its phase and no more; a unit that no `end` mark closes counts
+    nowhere. None of these where the slice has no mark."""
 
     def __init__(self, events, window=None, classes=()):
         from portbench.spec import classify
 
-        dev = _device(events, window)
+        dev = device_events(events, window)
         merged = _union((e["ts"], e["ts"] + e["dur"]) for e in dev)
         starts = [e["ts"] for e in dev]
         marks = [e for e in dev if e["name"].startswith(MARK)]
@@ -98,20 +82,25 @@ class Phases:
         self.class_s: dict[tuple, float] = collections.Counter()
         self.units, self.unit_s, self.unit_idle_s = 0, 0.0, 0.0
         opened = None
+        busy, by_class = collections.Counter(), collections.Counter()  # the open unit's
         for here, nxt in zip(marks, marks[1:]):
             name = here["name"][len(MARK):]
-            if name in UNIT_START:
+            if name in UNIT_START and opened is None:
                 opened = here["ts"]
             if opened is not None and name != "end":
-                self.busy_s[name] += _busy(merged, here["ts"], nxt["ts"]) / 1e6
+                busy[name] += _busy(merged, here["ts"], nxt["ts"]) / 1e6
                 for e in dev[bisect.bisect_left(starts, here["ts"]):
                              bisect.bisect_left(starts, nxt["ts"])] if classes else ():
-                    self.class_s[name, classify(e["name"], e["cat"], classes)] += e["dur"] / 1e6
+                    by_class[name, classify(e["name"], e["cat"], classes)] += e["dur"] / 1e6
             if nxt["name"] == MARK + "end" and opened is not None:
                 end = nxt["ts"] + nxt["dur"]
                 self.units += 1
                 self.unit_s += (end - opened) / 1e6
                 self.unit_idle_s += (end - opened - _busy(merged, opened, end)) / 1e6
+                self.busy_s.update(busy)
+                self.class_s.update(by_class)
+                busy.clear()
+                by_class.clear()
                 opened = None
 
     def per_unit_ms(self, phase: str) -> float | None:
@@ -128,35 +117,6 @@ class Phases:
 
     def idle_ms(self) -> float | None:
         return 1e3 * self.unit_idle_s / self.units if self.units else None
-
-
-def unit_thread(events, unit_span: str):
-    """The thread that runs the units: the thread of the harness's span
-    `unit_span` (`portbench.<driver>`)."""
-    tids = collections.Counter(e["tid"] for e in events
-                               if e["cat"] == "user_annotation" and e["name"] == unit_span)
-    return tids.most_common(1)[0][0] if tids else None
-
-
-def idle_gaps(events, window, tid) -> collections.Counter:
-    """Idle seconds of the device within `window`, each gap put down to the
-    innermost span, the harness's (`portbench.*`) or the program's (`jp.*`),
-    that holds its middle on thread `tid`, else to "outside a unit"."""
-    t0, t1 = window
-    busy = _union((max(e["ts"], t0), min(e["ts"] + e["dur"], t1))
-                  for e in _device(events, window))
-    spans = [e for e in events if e["cat"] == "user_annotation" and e["tid"] == tid
-             and e["name"].startswith(("portbench.", "jp."))]
-    edges = [t0] + [x for iv in busy for x in iv] + [t1]
-    out = collections.Counter()
-    for s, e in zip(edges[::2], edges[1::2]):
-        if e <= s:
-            continue
-        mid = (s + e) / 2
-        inside = [sp for sp in spans if sp["ts"] <= mid <= sp["ts"] + sp["dur"]]
-        name = min(inside, key=lambda sp: sp["dur"])["name"] if inside else "outside a unit"
-        out[name] += (e - s) / 1e6
-    return out
 
 
 def launch_work(kernel: str, dtype: str, n: int, h: int, w: int, c: int, o: int,
@@ -192,7 +152,7 @@ def roofline_s(shapes: dict, kernels: tuple[str, ...], peaks: dict) -> float:
 
 
 def kernel_seconds(events, window, pattern) -> float:
-    return sum(e["dur"] for e in _device(events, window)
+    return sum(e["dur"] for e in device_events(events, window)
                if e["cat"] == "kernel" and pattern.search(e["name"])) / 1e6
 
 
@@ -218,10 +178,6 @@ def setup_seconds(totals: dict | None) -> float | None:
     return seconds if seconds > 0 else None
 
 
-def _diff(after: dict, before: dict) -> dict:
-    return {k: n - before.get(k, 0) for k, n in after.items() if n != before.get(k, 0)}
-
-
 def main(argv=None) -> int:
     import argparse
 
@@ -232,10 +188,9 @@ def main(argv=None) -> int:
     args = p.parse_args(argv)
 
     import torch
-    from torch.profiler import ProfilerActivity, profile, record_function
 
     from portbench import spec
-    from portbench.run import Context, power_limit
+    from portbench.run import Context, Slice, power_limit, reader_context
 
     if not torch.cuda.is_available():
         print("portbench.phases: needs a CUDA device", file=sys.stderr)
@@ -243,49 +198,38 @@ def main(argv=None) -> int:
     bench = spec.load_benchmark()
     cell = spec.cell(bench, args.workload)
     traffic = spec.load_traffic(cell["traffic"])
-    ctx = Context(cell=cell, cfg=spec.load_config(cell["config"]), traffic=traffic,
-                  seed=args.seed, device=torch.device("cuda"))
+    cfg = spec.load_config(cell["config"])
+    ctx = Context(cell=cell, cfg=cfg, traffic=traffic, seed=args.seed,
+                  device=torch.device("cuda"))
     driver = spec.load_driver(traffic["driver"]).Driver(ctx)
     units = args.units or int(traffic["trace_steps"])
     unit = f"portbench.{traffic['driver']}"
     tracing = sys.modules.get("jperceiver_tpu_torch.tracing")
-    kernels = sys.modules.get("jperceiver_tpu_torch.ops.cuda")
-    shapes = getattr(kernels, "launch_shapes", dict)
     setup = tracing.totals() if tracing else None
-    torch.cuda.synchronize()
-    before = shapes()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        torch.cuda.synchronize()
-        with record_function("portbench.slice"):
-            for _ in range(units):
-                with record_function(unit):
-                    driver.step()
-            torch.cuda.synchronize()
-    launched = _diff(shapes(), before)
-    events = profile_events(prof)
-    sl = max((e for e in events if e["name"] == "portbench.slice"
-              and e["cat"] == "user_annotation"), key=lambda e: e["dur"])
-    window = (sl["ts"], sl["ts"] + sl["dur"])
-    busy = _union((max(e["ts"], window[0]), min(e["ts"] + e["dur"], window[1]))
-                  for e in _device(events, window))
-    busy_s = sum(e - s for s, e in busy) / 1e6
-    phases = Phases(events, window, spec.kernel_classes())
-    gaps = idle_gaps(events, window, unit_thread(events, unit))
+    sl = Slice(torch.cuda.synchronize, cuda=True)
+    for _ in range(units):
+        with sl.span(unit):
+            driver.step()
+    sl.close()
+    rctx = reader_context(sl, cfg, driver.flops_pass(), units, unit)
+    r, phases = rctx.reduced, rctx.phases
     result = {
         "workload": args.workload, "seed": args.seed, "units": units,
         "device": torch.cuda.get_device_name(0), "power_limit": power_limit(),
-        "window_ms": (window[1] - window[0]) / 1e3, "busy_ms": 1e3 * busy_s,
-        "busy_ms_per_unit": 1e3 * busy_s / units,
+        "window_ms": 1e3 * r.window_s, "busy_ms": 1e3 * r.busy_s,
+        "busy_ms_per_unit": 1e3 * r.busy_s / units,
         "marks_first_unit": phases.marks[:8], "mark_units": phases.units,
         "phase_ms": {k: phases.per_unit_ms(k) for k in phases.busy_s},
         "phase_class_ms": phases.class_ms(),
         "replay_idle_ms": phases.idle_ms(),
-        "idle_ms_per_unit": 1e3 * ((window[1] - window[0]) / 1e6 - busy_s) / units,
-        "idle_gaps_ms": {k: 1e3 * v for k, v in gaps.most_common()},
-        "roofline_pct": conv_rooflines(events, window, launched, spec.peaks()),
-        "k3_ms_per_unit": 1e3 * kernel_seconds(events, window, K3_KERNELS) / units,
-        "k4_ms_per_unit": 1e3 * kernel_seconds(events, window, K4_KERNELS) / units,
-        "launch_shapes": {"|".join(map(str, k)): v for k, v in sorted(launched.items())},
+        "idle_ms_per_unit": 1e3 * (r.window_s - r.busy_s) / units,
+        "idle_gaps_ms": {k: 1e3 * v for k, v in r.breakdown(len(r.gaps))["idle_gaps"]},
+        "roofline_pct": conv_rooflines(rctx.events, rctx.window, rctx.launch_shapes,
+                                       spec.peaks()),
+        "k3_ms_per_unit": 1e3 * kernel_seconds(rctx.events, rctx.window, K3_KERNELS) / units,
+        "k4_ms_per_unit": 1e3 * kernel_seconds(rctx.events, rctx.window, K4_KERNELS) / units,
+        "launch_shapes": {"|".join(map(str, k)): v
+                          for k, v in sorted(rctx.launch_shapes.items())},
         "graph_setup_s": setup_seconds(setup), "setup_totals": setup,
     }
     print(json.dumps(result), flush=True)

@@ -10,7 +10,7 @@ import types
 
 import pytest
 
-from portbench import phases, spec
+from portbench import phases, spec, trace
 
 # Two training steps in a slice of 1000 us, times in microseconds. Each
 # step: forward 40, losses 20 + 10 around cgt 10, backward 30 with 10 idle
@@ -90,18 +90,50 @@ def test_a_slice_without_marks_reads_nothing():
 
 
 def test_idle_gaps_take_the_innermost_span_of_the_units_thread():
-    tid = phases.unit_thread(EVENTS, "portbench.train")
+    tid = trace.unit_thread(EVENTS, "portbench.train")
     assert tid == 1
-    gaps = phases.idle_gaps(EVENTS, (0.0, 1000.0), tid)
+    gaps = trace.idle_gaps(EVENTS, (0.0, 1000.0), tid)
     # Each gap goes whole to the innermost span on thread 1 that holds its
     # middle: [0, 100] and [195, 205] to the first step's launch (not to the
     # prefetch thread's load around 200), [237, 590] between the steps to
     # the slice, [595, 600], [695, 705] and [737, 1000] to the second step.
-    assert dict(gaps) == {"jp.graph.launch": pytest.approx(110e-6),
-                          "portbench.slice": pytest.approx(353e-6),
-                          "jp.train_step": pytest.approx(278e-6)}
-    assert sum(gaps.values()) == pytest.approx(1e-6 * (1000 - 2 * 127 - 5))
-    assert set(phases.idle_gaps(EVENTS, (0.0, 1000.0), 99)) == {"outside a unit"}
+    assert [(n, round(s * 1e6)) for n, s in gaps] == [
+        ("portbench.slice", 353), ("jp.train_step", 263), ("jp.graph.launch", 100),
+        ("jp.graph.launch", 10), ("jp.train_step", 10), ("jp.train_step", 5)]
+    summed = trace.Reduced(EVENTS, (0.0, 1000.0), spec.kernel_classes(), 2, tid).breakdown()
+    assert dict(summed["idle_gaps"]) == {"jp.graph.launch": pytest.approx(110e-6),
+                                         "portbench.slice": pytest.approx(353e-6),
+                                         "jp.train_step": pytest.approx(278e-6)}
+    assert sum(s for _, s in gaps) == pytest.approx(1e-6 * (1000 - 2 * 127 - 5))
+    assert {n for n, _ in trace.idle_gaps(EVENTS, (0.0, 1000.0), 99)} == {"outside a unit"}
+
+
+def test_a_start_mark_inside_an_open_unit_does_not_reopen_it():
+    # One unit: `forward` at 0, a second `forward` at 20 (19 us idle before
+    # it), a kernel from 21 to 40, `end` at 40; marks 1 us each.
+    events = [{"name": "jp_mark_" + n, "cat": "kernel", "ts": ts, "dur": dur, "tid": 7}
+              for n, ts, dur in (("forward", 0.0, 1.0), ("forward", 20.0, 1.0),
+                                 ("end", 40.0, 1.0))]
+    events.append({"name": "k", "cat": "kernel", "ts": 21.0, "dur": 19.0, "tid": 7})
+    p = phases.Phases(events, (0.0, 100.0))
+    # The unit opens at the first mark: 41 us, 19 of them idle. Reopened at
+    # the second it would read 21 us and no idle.
+    assert p.units == 1
+    assert p.unit_s == pytest.approx(41e-6)
+    assert p.idle_ms() == pytest.approx(19e-3)
+    assert p.per_unit_ms("forward") == pytest.approx(21e-3)
+
+
+def test_a_unit_that_no_end_mark_closes_counts_nowhere():
+    # The second step's `end` mark lost (as at a slice's edge): its phases
+    # are not added to the first step's, which alone is read.
+    events = [e for e in EVENTS if not (e["name"] == "jp_mark_end" and e["ts"] > 600)]
+    p = phases.Phases(events, (0.0, 1000.0), spec.kernel_classes())
+    assert p.units == 1
+    assert p.per_unit_ms("forward") == pytest.approx(41e-3)
+    assert p.per_unit_ms("losses") == pytest.approx(32e-3)
+    assert p.class_ms()["backward"]["elementwise"] == pytest.approx(30e-3)
+    assert p.idle_ms() == pytest.approx(10e-3)
 
 
 def test_launch_work_is_the_kernel_tables_count():
