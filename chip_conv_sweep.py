@@ -7,6 +7,8 @@
                                                # K4's second-sum interval
     python3 chip_conv_sweep.py --k3-tf32 [--parent DIR]
                                                # K3's TF32 path
+    python3 chip_conv_sweep.py --k4-tf32 [--parent DIR]
+                                               # K4's TF32 path
 
 At every K3 site shape of the 1024^2 training step, times K3 through its C
 entry point, bypassing the tile plan, at each output-tile width (forward
@@ -59,6 +61,18 @@ shipped one at the same width, which tells whether the accumulator's own
 adds need one. With `--parent DIR` it holds the bf16 and exact fp32 paths
 bit for bit to that checkout's `conv3x3.cu` at every site at B = 1.
 Output: chiprun_out/k3_tf32.json.
+
+`--k4-tf32` times K4's TF32 path through its wrapper (on the forward's
+saved operand, as the backward calls it) at every site at B = 1 and 3,
+beside its bound at 494.7 TFLOP/s and 3.35 TB/s, cuDNN's TF32
+`conv2d_weight` (`allow_tf32` on) and the exact fp32 kernel; K4 and cuDNN
+each with its largest distance to float64 of the rounded operands in TF32
+gaps (the largest distance between float64 of the rounded and of the exact
+operands). Then the plan's tiles at several split counts through the C
+entry (each run twice, bit for bit), which is what `k4_plan`'s split model
+is fitted to. With `--parent DIR` it holds the bf16 and exact fp32 K4 bit
+for bit to that checkout's `conv3x3_wgrad.cu` at every site at B = 1.
+Output: chiprun_out/k4_tf32.json.
 """
 
 from __future__ import annotations
@@ -236,6 +250,99 @@ def k3_tf32_sweep(torch, parent: str | None = None) -> list[dict]:
             print(json.dumps(row), flush=True)
             rows.append(row)
             del x, gy, w, wt
+            torch.cuda.empty_cache()
+    return rows
+
+
+def k4_tf32_sweep(torch, parent: str | None = None) -> list[dict]:
+    from chip_smoke import time_ms
+    from jperceiver_tpu_torch.ops.cuda import _build
+    from jperceiver_tpu_torch.ops.cuda import conv3x3 as k3
+
+    own = _build.library
+    lib = own()
+    plib = build_alone(csrc_of(parent), "conv3x3_wgrad.cu", "parent_k4") if parent else None
+    card = torch.cuda.get_device_name(0)
+    g = torch.Generator(device="cuda").manual_seed(20)
+    flags = torch.backends.cudnn
+    rows = []
+
+    def wgrad64(x, gy, pad):
+        return torch.nn.grad.conv2d_weight(x.double(), (gy.shape[1], x.shape[1], 3, 3),
+                                           gy.double(), padding=pad)
+
+    for bsz in (1, 3):
+        for c, o, e, pad in SITES:
+            hin = e + 2 - 2 * pad
+            x = torch.randn(bsz, c, hin, hin, device="cuda", generator=g)
+            x = x.contiguous(memory_format=torch.channels_last)
+            gy = torch.randn(bsz, o, e, e, device="cuda", generator=g)
+            gy = gy.contiguous(memory_format=torch.channels_last)
+            xh, gh = k3._tma_operand(x), k3._tma_operand(gy)
+            p = k3.k4_plan(bsz, hin, hin, c, o, pad, elem=4)
+            flops = 2 * 9 * c * o * bsz * e * e
+            byts = 4 * (bsz * hin * hin * c + bsz * e * e * o + o * c * 9)
+            ref = wgrad64(k3.round_tf32(x), k3.round_tf32(gy), pad)
+            gap = (ref - wgrad64(x, gy, pad)).abs().max().item()
+            row = {"card": card, "batch": bsz, "site": [c, o, e, pad],
+                   "plan": [p.box_w, p.box_h, p.bn, p.splits, p.tiles_per_split,
+                            p.flush_tiles],
+                   "bound_ms": 1e3 * max(flops / 494.7e12, byts / 3.35e12)}
+            flags.allow_tf32 = True
+            dw = k3._wgrad_tma(xh, gy, pad)
+            row["err_gaps"] = (dw.double() - ref).abs().max().item() / gap
+            row["tf32_ms"] = time_ms(torch, lambda: k3._wgrad_tma(xh, gy, pad), reps=10)
+            lib_call = functools.partial(torch.nn.grad.conv2d_weight, x, (o, c, 3, 3), gy,
+                                         padding=pad)
+            row["cudnn_err_gaps"] = (lib_call().double() - ref).abs().max().item() / gap
+            row["cudnn_tf32_ms"] = time_ms(torch, lib_call, reps=10)
+            flags.allow_tf32 = False
+            row["f32_ms"] = time_ms(torch, lambda: k3.conv3x3_wgrad(x, gy, pad), reps=10)
+            row["share"] = row["bound_ms"] / row["tf32_ms"]
+            out = torch.empty(o, c, 3, 3, device="cuda")
+            blocks = -(-9 * p.kchunks // 2) * p.n_tiles
+            wave = max(1, 132 // blocks)
+            for splits in sorted({1, 2, 3, 4, 6, 8, 11, 13, 16, 26, 39, 52, wave, 2 * wave,
+                                  3 * wave, p.splits}):
+                if splits > max(1, p.tiles // 8):
+                    continue
+                per = -(-p.tiles // splits)
+                splits = -(-p.tiles // per)
+                part = torch.empty(splits, 9, 64 * p.kchunks, p.bn * p.n_tiles, device="cuda")
+
+                def run(splits=splits, per=per, part=part):
+                    err = lib.jp_conv3x3_wgrad_tf32(
+                        xh.data_ptr(), gh.data_ptr(), part.data_ptr(), out.data_ptr(), bsz,
+                        hin, hin, c, *k3._strides(xh), o, *k3._strides(gh), pad, p.box_w,
+                        p.box_h, p.bn, splits, per, min(p.flush_tiles, per), k3._stream(xh))
+                    _build.check(err, f"K4 TF32 splits {splits}")
+
+                run()
+                first = out.clone()
+                run()
+                torch.cuda.synchronize()
+                if not torch.equal(first.view(torch.int32), out.view(torch.int32)):
+                    raise AssertionError(f"K4 TF32 splits {splits} at {row['site']} B {bsz}: "
+                                         "two runs differ")
+                row[f"s{splits}_ms"] = time_ms(torch, run, reps=10)
+                row[f"s{splits}_err_gaps"] = (out.double() - ref).abs().max().item() / gap
+                del part
+            if plib is not None and bsz == 1:
+                # bf16 and exact fp32 against the other checkout's kernels,
+                # launched by this wrapper with its library swapped in.
+                for dtype in (torch.bfloat16, torch.float32):
+                    xd, gd = x.to(dtype), gy.to(dtype)
+                    ours = k3.conv3x3_wgrad(xd, gd, pad)
+                    _build.library = lambda: plib
+                    try:
+                        theirs = k3.conv3x3_wgrad(xd, gd, pad)
+                    finally:
+                        _build.library = own
+                    row[f"{str(dtype)[6:]}_equal_parent"] = bool(
+                        torch.equal(ours.view(torch.int32), theirs.view(torch.int32)))
+            print(json.dumps(row), flush=True)
+            rows.append(row)
+            del x, gy, xh, gh, ref, dw
             torch.cuda.empty_cache()
     return rows
 
@@ -487,7 +594,7 @@ def k4_anatomy(torch, card: str) -> dict:
     from chip_smoke import time_ms
     from jperceiver_tpu_torch.ops.cuda import _build, conv3x3_wgrad, conv3x3_wgrad_plain
     from jperceiver_tpu_torch.ops.cuda.conv3x3 import (_ceil, _pick_box, _sm_count, _stream,
-                                                       _strides, _tma_operand, _wgrad_bf16,
+                                                       _strides, _tma_operand, _wgrad_tma,
                                                        k4_plan)
 
     variants = build_anatomy(os.path.join(ROOT, "jperceiver_tpu_torch", "ops", "cuda", "csrc"))
@@ -559,7 +666,7 @@ def k4_anatomy(torch, card: str) -> dict:
             row = {"card": card, "site": [c, o, e, pad], "batch": bsz,
                    "plan": [p.bn, p.splits, p.tiles_per_split],
                    "err_over_scale": ((dw - ref).abs().max() / ref.abs().max()).item(),
-                   "k4_ms": time_ms(torch, lambda: _wgrad_bf16(xh, gy, pad), reps=10),
+                   "k4_ms": time_ms(torch, lambda: _wgrad_tma(xh, gy, pad), reps=10),
                    "cudnn_ms": time_ms(torch, lambda: grad.conv2d_weight(
                        x, (o, c, 3, 3), gy, padding=pad), reps=10)}
             res["sites"].append(row)
@@ -692,6 +799,14 @@ def main() -> int:
                              else None)
         os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
         with open(os.path.join(ROOT, "chiprun_out", "k3_tf32.json"), "w") as f:
+            json.dump(rows, f, indent=1)
+        return 0
+    if "--k4-tf32" in sys.argv[1:]:
+        args = sys.argv[1:]
+        rows = k4_tf32_sweep(torch, args[args.index("--parent") + 1] if "--parent" in args
+                             else None)
+        os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
+        with open(os.path.join(ROOT, "chiprun_out", "k4_tf32.json"), "w") as f:
             json.dump(rows, f, indent=1)
         return 0
     if "--k4-flush" in sys.argv[1:]:

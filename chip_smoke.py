@@ -154,20 +154,21 @@ Phases, each of which raises on failure:
      in a profiled replay at phase 9's counts a step, NCCL's kernels by
      name; times (not gated). `python3 chip_smoke.py --ddp-graph 2 4`
      runs phase 16 alone on 2 and then 4 cards;
- 17. (run after phase 8) K3's TF32 path, which fp32 operands take where
-     `torch.backends.cudnn.allow_tf32` is set (every other phase runs with
-     it off): at every K3 site of the training step at B = 1 and 3, as the
-     forward and as the data-grad, against the plain version on the
-     operands rounded to TF32 (`round_tf32`), within TF32_TOL_GAPS of the
-     site's TF32 gap, which a kernel that truncates the activation fails
-     (`_truncate_tf32`, read beside), each call counted by
-     `tf32_launch_counts()`; timed at B = 1 beside its bound at 494.7
-     TFLOP/s, cuDNN's TF32, the exact fp32 kernel and the plain version;
-     then phase 8's fp32 step captured with the flag on and off (one step
-     object: the flag is in the graph's key), each setting's launches and
-     TF32 launches in a replay from the counters, and its K3 kernels by
-     name in a profiled replay (TF32 or exact, none of the other).
-     `python3 chip_smoke.py --k3-tf32` runs phase 17 alone.
+ 17. (run after phase 8) K3's and K4's TF32 paths, which fp32 operands
+     take where `torch.backends.cudnn.allow_tf32` is set (every other phase
+     runs with it off): at every K3 site of the training step at B = 1 and
+     3, as the forward, as the data-grad and as K4's weight gradient,
+     against the plain version on the operands rounded to TF32
+     (`round_tf32`), within TF32_TOL_GAPS of the site's TF32 gap, which a
+     kernel that truncates its operands fails (`_truncate_tf32`, read
+     beside), each call counted by `tf32_launch_counts()`; timed at B = 1
+     beside its bound at 494.7 TFLOP/s, cuDNN's TF32, the exact fp32
+     kernel and the plain version; then phase 8's fp32 step captured with
+     the flag on and off (one step object: the flag is in the graph's
+     key), each setting's launches and TF32 launches in a replay from the
+     counters, and its K3 and K4 kernels by name in a profiled replay (TF32
+     or exact, none of the other; K3's filter, `conv3x3_f32`, matches no K4
+     kernel). `python3 chip_smoke.py --k3-tf32` runs phase 17 alone.
 
 Phases 9, 10 and 13 run the step and the eval hook's forward as CUDA
 graphs, the default on the card (`make_train_step(graph=None)`); the
@@ -1031,7 +1032,7 @@ def phase_reproj(torch) -> dict:
 def phase_conv_bwd(torch, sites) -> dict:
     """K3 as the data-grad and K4 at every K3 site shape of the step."""
     from jperceiver_tpu_torch.ops.cuda import conv3x3_plain, conv3x3_wgrad, conv3x3_wgrad_plain
-    from jperceiver_tpu_torch.ops.cuda.conv3x3 import _conv, _tma_operand, _wgrad_bf16
+    from jperceiver_tpu_torch.ops.cuda.conv3x3 import _conv, _tma_operand, _wgrad_tma
 
     grad = torch.nn.grad
     g = torch.Generator(device="cuda").manual_seed(4)
@@ -1128,7 +1129,7 @@ def phase_conv_bwd(torch, sites) -> dict:
                 dgrad_ms=time_ms(torch, lambda: _conv(gy, wflip, None, 2 - pad, "conv3x3_dgrad"), reps=10),
                 dgrad_plain_ms=time_ms(torch, lambda: conv3x3_plain(gy, wflip, None, 2 - pad), reps=5),
                 dgrad_library_ms=time_ms(torch, lambda: grad.conv2d_input(x.shape, wt, gy, padding=pad), reps=10),
-                wgrad_ms=time_ms(torch, lambda: _wgrad_bf16(xh, gy, pad), reps=10),
+                wgrad_ms=time_ms(torch, lambda: _wgrad_tma(xh, gy, pad), reps=10),
                 wgrad_plain_ms=time_ms(torch, lambda: conv3x3_wgrad_plain(x, gy, pad), reps=5),
                 wgrad_library_ms=time_ms(torch, lambda: grad.conv2d_weight(x, wt.shape, gy, padding=pad), reps=10))
             for k in ("dgrad_", "wgrad_"):
@@ -1137,7 +1138,7 @@ def phase_conv_bwd(torch, sites) -> dict:
             row.update(
                 dgrad_enqueue_ms=enqueue_ms(torch, lambda: _conv(gy, wflip, None, 2 - pad,
                                                              "conv3x3_dgrad")),
-                wgrad_enqueue_ms=enqueue_ms(torch, lambda: _wgrad_bf16(xh, gy, pad)))
+                wgrad_enqueue_ms=enqueue_ms(torch, lambda: _wgrad_tma(xh, gy, pad)))
             for k in ("ms", "plain_ms", "library_ms", "bound_ms"):
                 tot["dgrad_" + k] += count * row["dgrad_" + k]
                 tot["wgrad_" + k] += count * row["wgrad_" + k]
@@ -1352,13 +1353,14 @@ def _truncate_tf32(torch, t):
 
 
 def phase_k3_tf32(torch, train_sites) -> dict:
-    """Phase 17: K3's TF32 path at the training step's K3 sites, then the
-    captured fp32 step with `cudnn.allow_tf32` on and off."""
+    """Phase 17: K3's and K4's TF32 paths at the training step's K3 sites
+    (whose weight gradients are K4's), then the captured fp32 step with
+    `cudnn.allow_tf32` on and off."""
     from jperceiver_tpu_torch.data import synthetic_batch
     from jperceiver_tpu_torch.engine import make_train_step
     from jperceiver_tpu_torch.engine.trainer import batch_to
     from jperceiver_tpu_torch.ops import cuda as kernels
-    from jperceiver_tpu_torch.ops.cuda import conv3x3_plain
+    from jperceiver_tpu_torch.ops.cuda import conv3x3_plain, conv3x3_wgrad, conv3x3_wgrad_plain
     from jperceiver_tpu_torch.ops.cuda.conv3x3 import _conv, round_tf32
 
     F, grad, flags = torch.nn.functional, torch.nn.grad, torch.backends.cudnn
@@ -1431,6 +1433,47 @@ def phase_k3_tf32(torch, train_sites) -> dict:
                 row[name + "_bound_share"] = bnd / row[name + "_ms"]
                 for k in ("ms", "library_ms", "exact_ms", "plain_ms", "bound_ms"):
                     tot[f"{name}_{k}"] += count * row[f"{name}_{k}"]
+            # K4, the weight gradient of the forward's site: the plain
+            # version on the rounded operands (x and the cotangent, both
+            # rounded by the kernel), the gap and the truncated reading as
+            # above.
+            flags.allow_tf32 = False
+            ref = conv3x3_wgrad_plain(round_tf32(x), round_tf32(gy), pad)
+            gap = (conv3x3_wgrad_plain(x, gy, pad) - ref).abs().max().item()
+            trunc = conv3x3_wgrad_plain(_truncate_tf32(torch, x), _truncate_tf32(torch, gy), pad)
+            flags.allow_tf32 = True
+            n0 = kernels.tf32_launch_counts()["conv3x3_wgrad"]
+            dw = conv3x3_wgrad(x, gy, pad)
+            torch.cuda.synchronize()
+            row["wgrad_err_gaps"] = (dw - ref).abs().max().item() / gap
+            row["wgrad_trunc_gaps"] = (trunc - ref).abs().max().item() / gap
+            row["wgrad_tf32_counted"] = kernels.tf32_launch_counts()["conv3x3_wgrad"] - n0
+            if not (row["wgrad_err_gaps"] <= TF32_TOL_GAPS < row["wgrad_trunc_gaps"]
+                    and row["wgrad_tf32_counted"] == 1 and tuple(dw.shape) == (o, c, 3, 3)):
+                raise AssertionError(f"K4 TF32 against the plain version on rounded operands: "
+                                     f"{row}")
+            worst = max(worst, row["wgrad_err_gaps"])
+            del ref, trunc, dw
+            if bsz == 1:
+                n_ops = 2.0 * 9 * c * o * h * w
+                n_bytes = 4.0 * (c * hin * win + o * h * w + o * c * 9)
+                bnd, by = bound_ms(n_bytes, n_ops, PEAK_TF32)
+                row.update({
+                    "wgrad_bound_ms": bnd, "wgrad_bound_by": by,
+                    # The 544-wide copy of the 513-channel concat included,
+                    # which the step makes once, in the forward, for K3 and K4.
+                    "wgrad_ms": time_ms(torch, lambda: conv3x3_wgrad(x, gy, pad), reps=10),
+                    "wgrad_library_ms": time_ms(torch, lambda: grad.conv2d_weight(
+                        x, (o, c, 3, 3), gy, padding=pad), reps=10)})
+                flags.allow_tf32 = False
+                row.update({
+                    "wgrad_exact_ms": time_ms(torch, lambda: conv3x3_wgrad(x, gy, pad),
+                                              reps=10),
+                    "wgrad_plain_ms": time_ms(torch, lambda: conv3x3_wgrad_plain(x, gy, pad),
+                                              reps=10)})
+                row["wgrad_bound_share"] = bnd / row["wgrad_ms"]
+                for k in ("ms", "library_ms", "exact_ms", "plain_ms", "bound_ms"):
+                    tot[f"wgrad_{k}"] += count * row[f"wgrad_{k}"]
             row["spins"] = take_spins()
             rows.append(row)
             log(f"K3 TF32 {row}")
@@ -1464,23 +1507,32 @@ def phase_k3_tf32(torch, train_sites) -> dict:
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             step(batch)
             torch.cuda.synchronize()
-        dev = [e for e in _device_events(prof) if "conv3x3_f32" in e.name]
-        tf32 = [e for e in dev if "tf32" in e.name]
-        exact = [e for e in dev if "tf32" not in e.name]
-        got.update(profiled_tf32_kernels=len(tf32), profiled_exact_kernels=len(exact),
-                   tf32_kernel_ms=sum(e.time_range.elapsed_us() for e in tf32) / 1e3,
-                   exact_kernel_ms=sum(e.time_range.elapsed_us() for e in exact) / 1e3)
-        want = {"conv3x3": n_k3, "conv3x3_dgrad": n_k3} if on else {"conv3x3": 0,
-                                                                     "conv3x3_dgrad": 0}
+        # K3's kernels by name, and K4's apart (no K4 name holds K3's).
+        events = _device_events(prof)
+        for kernel, pattern in (("", "conv3x3_f32"), ("k4_", "wgrad_f32")):
+            dev = [e for e in events if pattern in e.name]
+            tf32 = [e for e in dev if "tf32" in e.name]
+            exact = [e for e in dev if "tf32" not in e.name]
+            got.update({
+                f"profiled_{kernel}tf32_kernels": len(tf32),
+                f"profiled_{kernel}exact_kernels": len(exact),
+                f"{kernel}tf32_kernel_ms": sum(e.time_range.elapsed_us() for e in tf32) / 1e3,
+                f"{kernel}exact_kernel_ms": sum(e.time_range.elapsed_us() for e in exact) / 1e3})
+        n = n_k3 if on else 0
+        want = {"conv3x3": n, "conv3x3_dgrad": n, "conv3x3_wgrad": n}
         n_tf32, n_exact = (2 * n_k3, 0) if on else (0, 2 * n_k3)
         if not (got["tf32_launches"] == want
-                and (got["launches"]["conv3x3"], got["launches"]["conv3x3_dgrad"]) == (n_k3, n_k3)
+                and (got["launches"]["conv3x3"], got["launches"]["conv3x3_dgrad"],
+                     got["launches"]["conv3x3_wgrad"]) == (n_k3, n_k3, n_k3)
                 and (got["profiled_tf32_kernels"], got["profiled_exact_kernels"])
-                == (n_tf32, n_exact) and math.isfinite(got["loss"])):
+                == (n_tf32, n_exact)
+                and (got["profiled_k4_tf32_kernels"], got["profiled_k4_exact_kernels"])
+                == (n_tf32 // 2, n_exact // 2) and math.isfinite(got["loss"])):
             raise AssertionError(f"captured fp32 step, allow_tf32 {on}: {got}, expected TF32 "
-                                 f"launches {want} and {n_tf32} TF32 / {n_exact} exact kernels")
+                                 f"launches {want}, {n_tf32} TF32 / {n_exact} exact K3 kernels "
+                                 f"and {n_tf32 // 2} / {n_exact // 2} K4 kernels")
         main["tf32_on" if on else "tf32_off"] = got
-        log(f"K3 TF32 main path, allow_tf32 {on}: {got}")
+        log(f"K3/K4 TF32 main path, allow_tf32 {on}: {got}")
     del step, model
     flags.allow_tf32 = False
     torch.cuda.empty_cache()
@@ -3780,7 +3832,7 @@ def main_ddp_graph(worlds: list[int]) -> int:
 
 def tf32_entries(kt: dict) -> list[dict]:
     """The kernel table's rows of phase 17: K3's TF32 path as the forward
-    and as the data-grad, device ms a 1024^2 fp32 B=1 step (each site's
+    and as the data-grad, and K4's, device ms a 1024^2 fp32 B=1 step (each site's
     time at B = 1 by its launches a step), beside its bound at PEAK_TF32,
     cuDNN's TF32 ("library"), the exact fp32 kernel and the plain version
     (cuDNN in exact fp32); launches a replay of the captured step."""
@@ -3790,9 +3842,12 @@ def tf32_entries(kt: dict) -> list[dict]:
             ("K3-TF32", "conv3x3_fwd_tf32", "fwd", "conv3x3",
              "jperceiver_tpu/ops/pallas/conv3x3.py:57"),
             ("K3-dgrad-TF32", "conv3x3_dgrad_tf32", "dgrad", "conv3x3_dgrad",
-             "jperceiver_tpu/ops/pallas/conv3x3.py:242")):
+             "jperceiver_tpu/ops/pallas/conv3x3.py:242"),
+            ("K4-TF32", "conv3x3_wgrad_tf32", "wgrad", "conv3x3_wgrad",
+             "jperceiver_tpu/ops/pallas/conv3x3.py:145")):
         ms, lib = per[key + "_ms"], per[key + "_library_ms"]
-        rows.append({"id": kid, "name": name, "route": "cuda", "source": K3_SRC,
+        rows.append({"id": kid, "name": name, "route": "cuda",
+                     "source": K4_SRC if key == "wgrad" else K3_SRC,
                      "replaces": replaces, "launches": launches[counter],
                      "max_err_tf32_gaps": max(r[key + "_err_gaps"] for r in kt["rows"]),
                      "ms": ms, "plain_ms": per[key + "_plain_ms"],

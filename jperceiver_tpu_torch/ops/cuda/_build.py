@@ -46,6 +46,8 @@ _SIGNATURES = {
     "jp_conv3x3_fwd_f32": (_P, _P, _P, _P) + (_I,) * 6 + (_P,),
     "jp_conv3x3_wgrad_bf16": (_P, _P, _P, _P, _I, _I, _I, _I, _L, _L, _L, _I, _L, _L, _L)
     + (_I,) * 7 + (_P,),
+    "jp_conv3x3_wgrad_tf32": (_P, _P, _P, _P, _I, _I, _I, _I, _L, _L, _L, _I, _L, _L, _L)
+    + (_I,) * 7 + (_P,),
     "jp_conv3x3_wgrad_f32": (_P, _P, _P, _P) + (_I,) * 10 + (_P,),
     "jp_maxpool5x5_fwd": (_P, _P) + (_I,) * 9 + (_P,),
     "jp_maxpool5x5_bwd": (_P, _P, _P, _P) + (_I,) * 9 + (_P,),

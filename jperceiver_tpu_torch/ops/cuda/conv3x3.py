@@ -7,22 +7,23 @@ pad 1, `pallas_conv3x3_valid` for pad 0, each a `custom_vjp`). The kernels
 are `csrc/conv3x3.cu`, an implicit GEMM over channels-last tiles, and
 `csrc/conv3x3_wgrad.cu`, a pixel-split GEMM with a deterministic reduction;
 see there for their design and bound. In bf16 both load their tiles with
-TMA, one box per tap, and multiply with wgmma; so does K3 on fp32 operands
+TMA, one box per tap, and multiply with wgmma; so do both on fp32 operands
 in TF32, 32 channels a box row; `k3_plan` and `k4_plan` say which boxes,
 and the CPU tests replay those plans with tensor slicing.
 
 Contract: operands in their input dtype (bf16 or fp32), fp32 accumulation,
 the bias added to the fp32 accumulator, the output in the input dtype.
-Float32 K3 calls follow `torch.backends.cudnn.allow_tf32`, read at each
-call, as cuDNN's fp32 convolution does (`k3_path`): set (PyTorch's
-default), the operands go to TF32 products, rounded to nearest even at 10
-mantissa bits (`round_tf32`: the weight here, the activation in the
-kernel), with fp32 accumulation -- the benchmark's reference rounds every
-convolution's operands so; off, they stay exact fp32 products on the CUDA
-cores. The TF32 kernel's bound at a site is its operations at 494.7
-TFLOP/s or its bytes at 3.35 TB/s; it reaches 0.16-0.70 of it at the
-step's sites, 0.52 at the widest at B = 3 (`csrc/conv3x3.cu`). K4 stays
-exact fp32 on fp32 operands.
+Float32 K3 and K4 calls follow `torch.backends.cudnn.allow_tf32`, read at
+each call, as cuDNN's fp32 convolution does (`k3_path`, `k4_path`): set
+(PyTorch's default), the operands go to TF32 products, rounded to nearest
+even at 10 mantissa bits (`round_tf32`: K3's weight here, K3's activation
+and both of K4's operands in the kernels), with fp32 accumulation -- the
+benchmark's reference rounds every convolution's operands and incoming
+gradient so; off, they stay exact fp32 products on the CUDA cores. A TF32
+kernel's bound at a site is its operations at 494.7 TFLOP/s or its bytes
+at 3.35 TB/s; K3 reaches 0.16-0.70 of it at the step's sites, 0.52 at the
+widest at B = 3 (`csrc/conv3x3.cu`); K4's shares are in
+`csrc/conv3x3_wgrad.cu`.
 Tensors are NCHW at this interface; the kernels read channels-last memory,
 so the wrappers take an NCHW tensor in channels-last memory format as it is
 and return outputs in that format.
@@ -50,8 +51,8 @@ from . import _build
 # Launches of the kernels (not of the plain versions) in this process:
 # K3 as the forward, K3 as the data-grad, K4.
 LAUNCHES = {"conv3x3": 0, "conv3x3_dgrad": 0, "conv3x3_wgrad": 0}
-# Of K3's launches (each counted in LAUNCHES too), those that took the TF32 path.
-TF32_LAUNCHES = {"conv3x3": 0, "conv3x3_dgrad": 0}
+# Of K3's and K4's launches (each counted in LAUNCHES too), those that took the TF32 path.
+TF32_LAUNCHES = {"conv3x3": 0, "conv3x3_dgrad": 0, "conv3x3_wgrad": 0}
 # The same launches by what each computed: (kernel, dtype, N, H, W, C_in, C_out, pad), the
 # kernel a key of LAUNCHES, H and W the input's, the channels unpadded.
 SHAPES: collections.Counter = collections.Counter()
@@ -65,13 +66,15 @@ _F32_WG_BK = 32    # fp32 K4's pixel chunk granule
 # box_w x box_h pixels of one image. TMA needs strides in multiples of 16
 # bytes (8 channels) and fills channels past the real count with zeros.
 _CHUNK = 64
-_K3_PIXELS, _K4_PIXELS = 128, 128
-# The most `wgmma` (16 pixels each) K4's accumulator sums before the kernel
-# adds it into its second fp32 sum, in registers: wgmma's own adds lose
-# precision with the length of that chain (`k4_plan`). At 128 pixels a step
-# that is every 2 steps. The adds cost next to nothing: with no second sum
-# at all a step is no faster (within 4%, `chip_conv_sweep.py --k4-anatomy`
-# on the H100), since what sets it is the step's loads.
+_K3_PIXELS = 128
+_K4_PIXELS = {2: 128, 4: 64}  # by element size: a TF32 step reads the same bytes
+# The most `wgmma` (16 pixels each in bf16, 8 in TF32) K4's accumulator sums
+# before the kernel adds it into its second fp32 sum, in registers: wgmma's
+# own adds lose precision with the length of that chain (`k4_plan`). At 128
+# pixels a bf16 step, or 64 a TF32 one, that is every 2 steps. The adds cost
+# next to nothing: with no second sum at all a bf16 step is no faster (within
+# 4%, `chip_conv_sweep.py --k4-anatomy` on the H100), since what sets it is
+# the step's loads.
 K4_CHAIN = 16
 # What a wave of K4 blocks costs beyond its tiles (pipeline fill, the
 # partial's store), in tiles of a block, and the bytes of fp32 partials that
@@ -98,21 +101,23 @@ def channels_stored(c: int, elem: int = 2) -> int:
 
 @dataclass(frozen=True)
 class TilePlan:
-    """Which TMA boxes a bf16 K3 or K4 launch reads, as its kernel computes
-    them from the block index.
+    """Which TMA boxes a K3 or K4 launch on the tensor cores (bf16, or fp32
+    in TF32: `elem` bytes an element) reads, as its kernel computes them
+    from the block index.
 
     The output pixels (B, Ho, Wo) are cut into tiles of box_w x box_h pixels
     of one image, numbered x fastest, then y, then image. Input channels are
-    read `chunk` at a time (`kchunks` chunks; 64 in bf16, 32 for K3's TF32
-    path: one 128-byte row either way), zero past `c`. K3 gives a block
+    read `chunk` at a time (`kchunks` chunks), zero past `c`: for K3 a box
+    row, 64 in bf16 and 32 in TF32 (128 bytes either way); for K4 an item's
+    64 channels at either size (two box rows in TF32). K3 gives a block
     one tile and `bn` output channels and loops over (tap, chunk); K4 gives
     a block two (tap, chunk) items (`k4_items`), `bn` output channels and
     a split of `tiles_per_split` consecutive tiles, and loops over the
     tiles, adding its `wgmma` accumulator into a second fp32 sum every
     `flush_tiles` tiles; at the end it writes that sum as the split's
     partial. Where a block's two items are one tap's adjacent whole chunks
-    its x boxes come in one load, and so do its g boxes where its 128
-    output channels are whole chunks. An
+    its x boxes come in one load, and so do its g boxes where its output
+    channels are whole chunks. An
     operand that has to be copied is stored `c_store` (`o_store`) channels
     wide; K3's output is stored `o_store` wide.
     """
@@ -130,6 +135,7 @@ class TilePlan:
     tiles_per_split: int = 0
     flush_tiles: int = 0
     chunk: int = _CHUNK
+    elem: int = 2
 
     @property
     def ho(self) -> int:
@@ -150,10 +156,6 @@ class TilePlan:
     @property
     def tiles(self) -> int:
         return self.b * self.tiles_x * self.tiles_y
-
-    @property
-    def elem(self) -> int:
-        return 128 // self.chunk
 
     @property
     def c_store(self) -> int:
@@ -236,22 +238,28 @@ def k3_plan(b: int, h: int, w: int, c: int, o: int, pad: int, sms: int = 132,
     tiles = b * _ceil(wo, box_w) * _ceil(ho, box_h)
     bn = min(_K3_WIDTHS, key=lambda n: (_ceil(tiles * _ceil(o, n), sms) * (n + 53),
                                         _ceil(o, n) * n, -n))
-    return TilePlan(b, h, w, c, o, pad, box_w, box_h, bn, chunk=128 // elem)
+    return TilePlan(b, h, w, c, o, pad, box_w, box_h, bn, chunk=128 // elem, elem=elem)
 
 
 @functools.lru_cache(maxsize=512)
-def k4_plan(b: int, h: int, w: int, c: int, o: int, pad: int, sms: int = 132) -> TilePlan:
-    """The tile plan of a bf16 K4 launch on x (b, c, h, w) and a cotangent
-    of o channels: tiles of 128 pixels, the output-tile width (64 or 128:
-    the kernel's second sum sits in registers beside its accumulator) that
-    covers o with the fewest columns, the widest of equals, and the pixels
+def k4_plan(b: int, h: int, w: int, c: int, o: int, pad: int, sms: int = 132,
+            elem: int = 2) -> TilePlan:
+    """The tile plan of a K4 launch on x (b, c, h, w) and a cotangent of o
+    channels, of `elem`-byte operands (2: the bf16 kernel; 4: the TF32 one):
+    tiles of 128 pixels in bf16 and 64 in TF32 (a step's boxes hold the
+    same bytes, for half the products at half the rate), the output-tile
+    width (64 or 128: the kernel's second sum sits in registers beside its
+    accumulator) that covers o with the fewest columns, the widest of
+    equals, and the pixels
     cut into the splits that make the launch's time least: waves of blocks
     on the `sms` SMs times (the tiles a block sums plus _K4_WAVE_TILES),
     plus the splits' fp32 partials (9 x 64 kchunks x o each) that
     `sum_splits` reads, _K4_SUM_BYTES a tile; of equals the fewest splits,
     with at least 8 tiles a split. (Fitted to `chip_conv_sweep.py` on the
     H100 at the step's sites, B = 1: a 128-pixel tile takes a block about
-    1 us at 128 wide, 0.7 at 64.)
+    1 us at 128 wide, 0.7 at 64. The TF32 plan keeps the weights in its
+    64-pixel tiles: at every site at B = 1 and 3 its split count was the
+    fastest that `chip_conv_sweep.py --k4-tf32` tried, or within 1%.)
 
     What bounds the kernel on the H100 is its loads, per load and per step
     more than per byte (`chip_conv_sweep.py --k4-anatomy`): so the tiles
@@ -269,7 +277,8 @@ def k4_plan(b: int, h: int, w: int, c: int, o: int, pad: int, sms: int = 132) ->
     ho, wo = h + 2 * pad - 2, w + 2 * pad - 2
     if min(b, c, o, ho, wo) < 1:
         raise ValueError(f"k4_plan: no work in x ({b}, {c}, {h}, {w}) -> {o} at pad {pad}")
-    box_w, box_h = _pick_box(ho, wo, _K4_PIXELS)
+    pixels = _K4_PIXELS[elem]
+    box_w, box_h = _pick_box(ho, wo, pixels)
     tiles = b * _ceil(wo, box_w) * _ceil(ho, box_h)
     bn = min(_K4_WIDTHS, key=lambda n: (_ceil(o, n) * n, -n))
     blocks = _ceil(9 * _ceil(c, _CHUNK), 2) * _ceil(o, bn)
@@ -278,8 +287,9 @@ def k4_plan(b: int, h: int, w: int, c: int, o: int, pad: int, sms: int = 132) ->
                  key=lambda s: (_ceil(blocks * s, sms) * (_ceil(tiles, s) + _K4_WAVE_TILES)
                                 + s * partial / _K4_SUM_BYTES, s))
     per_split = _ceil(tiles, splits)
+    # A wgmma sums 32 bytes of pixels: 16 in bf16, 8 in TF32.
     return TilePlan(b, h, w, c, o, pad, box_w, box_h, bn, _ceil(tiles, per_split), per_split,
-                    min(K4_CHAIN * 16 // _K4_PIXELS, per_split))
+                    min(K4_CHAIN * (32 // elem) // pixels, per_split), elem=elem)
 
 
 @functools.cache
@@ -346,7 +356,14 @@ def k3_path(device_type: str, dtype: torch.dtype, allow_tf32: bool) -> str:
     return "tf32" if allow_tf32 else "f32"
 
 
+# Which K4 a call runs: K3's rule, so that a float32 weight gradient takes
+# TF32 exactly where the same conv's forward and data-grad do, as cuDNN's
+# three do under the flag.
+k4_path = k3_path
+
+
 def _path(x: torch.Tensor) -> str:
+    """The K3 and K4 path of a call on x, the flag read now."""
     return k3_path(x.device.type, x.dtype, torch.backends.cudnn.allow_tf32)
 
 
@@ -469,8 +486,8 @@ def conv3x3_wgrad(x: torch.Tensor, g: torch.Tensor, pad: int) -> torch.Tensor:
     if g.shape[0] != bsz or (ho, wo) != (h + 2 * pad - 2, wd + 2 * pad - 2):
         raise ValueError(f"conv3x3_wgrad: x {tuple(x.shape)} and g "
                          f"{tuple(g.shape)} do not match at pad {pad}")
-    if x.dtype == torch.bfloat16:
-        return _wgrad_bf16(_tma_operand(x), g, pad)
+    if _path(x) != "f32":
+        return _wgrad_tma(_tma_operand(x), g, pad)
     out = torch.empty((o, c, 3, 3), device=x.device, dtype=torch.float32)
     cp = _ceil(c, _F32_WG_TILE) * _F32_WG_TILE
     op = _ceil(o, _F32_WG_TILE) * _F32_WG_TILE
@@ -493,20 +510,26 @@ def conv3x3_wgrad(x: torch.Tensor, g: torch.Tensor, pad: int) -> torch.Tensor:
     return out
 
 
-def _wgrad_bf16(xh: torch.Tensor, g: torch.Tensor, pad: int) -> torch.Tensor:
-    """K4 in bf16 on x as `_tma_operand` gives it, (B, H, W, C)."""
+def _wgrad_tma(xh: torch.Tensor, g: torch.Tensor, pad: int) -> torch.Tensor:
+    """K4 on the tensor cores, bf16 or (fp32 operands) TF32, on x as
+    `_tma_operand` gives it, (B, H, W, C); the cotangent is read through
+    `_tma_operand` too."""
     bsz, h, wd, c = xh.shape
     o = g.shape[1]
-    p = k4_plan(bsz, h, wd, c, o, pad, _sm_count(xh.device.index))
+    tf32 = xh.dtype == torch.float32
+    p = k4_plan(bsz, h, wd, c, o, pad, _sm_count(xh.device.index), xh.element_size())
     gh = _tma_operand(g)
     out = torch.empty((o, c, 3, 3), device=xh.device, dtype=torch.float32)
     partial = torch.empty((p.splits, 9, _CHUNK * p.kchunks, p.bn * p.n_tiles),
                           device=xh.device, dtype=torch.float32)
-    err = _build.library().jp_conv3x3_wgrad_bf16(
+    lib = _build.library()
+    err = (lib.jp_conv3x3_wgrad_tf32 if tf32 else lib.jp_conv3x3_wgrad_bf16)(
         xh.data_ptr(), gh.data_ptr(), partial.data_ptr(), out.data_ptr(),
         bsz, h, wd, c, *_strides(xh), o, *_strides(gh), pad, p.box_w, p.box_h, p.bn,
         p.splits, p.tiles_per_split, p.flush_tiles, _stream(xh))
     _build.check(err, "conv3x3_wgrad")
+    if tf32:
+        TF32_LAUNCHES["conv3x3_wgrad"] += 1
     _count("conv3x3_wgrad", xh.dtype, bsz, h, wd, c, o, pad)
     return out
 
@@ -517,8 +540,8 @@ class _Conv3x3(torch.autograd.Function):
         ctx.pad = pad
         ctx.bias_dtype = None if b is None else b.dtype
         # bf16 and TF32 on the card: a copy made for TMA (the 513-channel
-        # concat) is made once and saved instead of x; bf16's K4 reads it in
-        # the backward as it is.
+        # concat) is made once and saved instead of x; K4 on the tensor
+        # cores reads it in the backward as it is.
         ctx.nhwc = _path(x) in ("bf16", "tf32")
         xh = _tma_operand(x) if ctx.nhwc else None
         ctx.save_for_backward(x if xh is None else xh, w)
@@ -537,8 +560,8 @@ class _Conv3x3(torch.autograd.Function):
             dx = _conv(g.to(dtype), wt.to(dtype), None, 2 - pad, "conv3x3_dgrad")
         if ctx.needs_input_grad[1]:
             gd = g.to(dtype)
-            if ctx.nhwc and dtype == torch.bfloat16:
-                dw = _wgrad_bf16(x, gd, pad)
+            if ctx.nhwc and _path(x) != "f32":
+                dw = _wgrad_tma(x, gd, pad)
             else:
                 dw = conv3x3_wgrad(x.permute(0, 3, 1, 2) if ctx.nhwc else x, gd, pad)
             dw = dw.to(w.dtype)

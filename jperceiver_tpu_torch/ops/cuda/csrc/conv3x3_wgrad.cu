@@ -9,8 +9,8 @@
 // to run.
 //
 // Layout: channels-last. x is (B, H, W, C), g is (B, Ho, Wo, O); the result is written as
-// (O, C, 3, 3) fp32. In bf16 x and g are read through their strides (multiples of 8
-// elements, as TMA wants), so the forward's operand is reused as it is.
+// (O, C, 3, 3) fp32. In bf16 and TF32 x and g are read through their strides (multiples of
+// 16 bytes, as TMA wants), so the forward's operand is reused as it is.
 //
 // Bound on this card (H100 SXM, 989 TFLOP/s bf16, 3.35 TB/s): 2*9*C*O*M operations for
 // M = B*Ho*Wo pixels against one read of x and g, well over the ~295 bf16 operations a
@@ -29,7 +29,7 @@
 //     is, and the cotangent's (64 o, box_w, box_h, 1) boxes that both warpgroups share.
 //     Where the two items are one tap's adjacent whole chunks their two x boxes come in ONE
 //     load, from a 5-D map (64 channels, W, H, chunk, B) whose chunks lie 128 bytes apart
-//     (`encode_nhwc_pair_map`), and so do the two g boxes of a 128-wide tile: two loads a
+//     (`encode_nhwc_chunk_map`), and so do the two g boxes of a 128-wide tile: two loads a
 //     step in place of four (`block_items` orders the items so that most blocks pair).
 //     Both operands are MN-major in shared memory (channels contiguous, pixels along the
 //     rows, 128-byte swizzled); wgmma m64nBNk16 reads them through its transpose bits, 8 a
@@ -38,9 +38,31 @@
 //     tiles a block sums, plus the partials `sum_splits` reads, is least. Every 2 steps
 //     (16 wgmma) the accumulator is added into a second fp32 sum in registers (below):
 //     wgmma's own adds lose precision along a chain.
-//   * fp32: a 64x64 tile of one tap on the CUDA cores, 4x4 outputs a thread, fed by
-//     cp.async (the tensor cores would round fp32 to TF32, which the contract does not
-//     allow), with blocked fp32 sums.
+//   * TF32 (fp32 operands, `torch.backends.cudnn.allow_tf32` set, as cuDNN's fp32 weight
+//     gradient runs): the bf16 design's blocks, items, splits and second sum, on tiles of 64
+//     pixels (a 128-byte fp32 box row holds 32 channels, so a step moves bf16's 128-pixel
+//     bytes), wgmma m64nBNk8 .tf32. TF32 wgmma reads only K-major operands, and here K is the
+//     pixels while both operands lie channels-contiguous. So x, a consumer's own item, is the
+//     A operand through registers: scalar loads from its MN-major boxes, rounded to nearest
+//     even (`round_tf32`); g, which both warpgroups share, is the B operand: the consumers
+//     transpose the step's g boxes once into a K-major 128-byte-swizzled buffer, rounding on
+//     the way, while the previous step's wgmma reads the other of two such buffers. The
+//     pixel order along K is chosen so that the A loads and the transpose's 16-byte loads and
+//     stores meet no bank conflict. x's four 32-channel boxes of a paired block come in one
+//     load, g's BN / 32 in another. A stage (x and g boxes) is freed once its A fragments are
+//     loaded and its g transposed: 2 stages at BN = 128, 4 at 64, beside the two buffers.
+//     Bound: 2*9*C*O*M operations at 494.7 TFLOP/s (the bytes never bound it). A step moves
+//     about 288 KB of shared memory (TMA's 64 KB, the transpose's 32 KB read and 32 written,
+//     32 KB of A fragments, and B read by both warpgroups, 64 KB) for 2.1 MFLOP: about 1.2 us
+//     at 128 bytes a clock against 0.56 us of products, so shared memory sets the step
+//     (measured 1.5 us at 513 -> 256 @ 256^2, B = 3). Shares of the bound on the H100
+//     (`chip_conv_sweep.py --k4-tf32`, the wrapper's call, B = 3): 64->64 @ 256^2 0.21,
+//     128->128 @ 128^2 0.31, 256->256 @ 64^2 0.26, 513->256 @ 64^2 0.27, 256->256 @ 128^2
+//     0.34, 513->256 @ 128^2 0.31, 256->256 @ 256^2 0.37, 513->256 @ 256^2 0.32 (B = 1:
+//     0.18-0.34); 4.4-9.0x faster than the exact kernel, 0.78-1.14x cuDNN's TF32 time; within
+//     0.002 of a TF32 gap of float64 on the rounded operands (cuDNN's TF32: 2.8-3.8 gaps).
+//   * exact fp32 (the flag off): a 64x64 tile of one tap on the CUDA cores, 4x4 outputs a
+//     thread, fed by cp.async, with blocked fp32 sums.
 // What sets a bf16 step's time (`chip_conv_sweep.py --k4-anatomy`, variants of this file at
 // 256 -> 256 and 513 -> 256 @ 256^2, B = 3, on the H100; PERF.md section 6): the loads, per
 // load and per step more than per byte. In the 64-pixel design before this one a step took
@@ -275,6 +297,253 @@ cudaError_t launch(const CUtensorMap& xmap, const CUtensorMap& gmap, const CUten
 }  // namespace bf16k
 
 // ---------------------------------------------------------------------------------
+// fp32 on the tensor cores: TF32 operands rounded to nearest, fp32 accumulators
+// ---------------------------------------------------------------------------------
+
+namespace tf32k {
+
+using bf16k::THREADS;
+constexpr int BP = 64;                // pixels a K step
+constexpr int SUB_BYTES = BP * 128;   // one (32 channels, 64 pixels) fp32 box: 8 KB
+constexpr int X_BYTES = 2 * SUB_BYTES;  // an item's 64 channels: two boxes
+
+// A stage holds the TMA boxes of a step: x for two items, then BN output channels of g, all
+// pixel-major (MN-major) as they lie. The consumers transpose g into one of two K-major
+// buffers beside the ring (`T_BYTES`: BP / 32 blocks of BN rows of 32 pixels), the one that
+// the step's wgmma reads, while the previous step's wgmma reads the other.
+template <int BN>
+struct Cfg {
+  static_assert(BN == 64 || BN == 128, "the second sum sits in registers up to 128 wide");
+  static constexpr int G_SUBS = BN / 32;
+  static constexpr int STAGE_BYTES = 2 * X_BYTES + G_SUBS * SUB_BYTES;
+  static constexpr int T_BYTES = BN * BP * 4;
+  static constexpr int STAGES = (227 * 1024 - 1024 - 2 * T_BYTES - 256) / STAGE_BYTES;  // 2, 4
+  static constexpr int SMEM = 1024 + STAGES * STAGE_BYTES + 2 * T_BYTES + 2 * STAGES * 8;
+  static constexpr int BLOCKS = BP * BN / 16;  // 4 x 4 blocks of g a step
+  static_assert(BLOCKS % 256 == 0, "whole 4 x 4 blocks a consumer thread");
+};
+
+// Transpose g of stage `gs` (G_SUBS boxes of (32 o, BP pixels), a 128-byte row a pixel) into
+// the K-major buffer `t` (BP / 32 blocks of BN rows of 32 pixels, a 128-byte row an output
+// channel), each element rounded to TF32 on the way. Pixel order along K: K position 8k + j
+// of a row holds pixel 8k + 2j for j < 4, 8k + 2(j - 4) + 1 after (what the A fragments of
+// `load_a` read, so that their loads meet no bank conflict). A consumer thread moves 4 x 4
+// blocks: 4 pixels (8k + e + 2i, i < 4) of 4 output channels, read as 4 16-byte rows, written
+// as 4. Within each 8 threads of a warp (q = thread % 8) the blocks' 16-byte chunks fall on 8
+// distinct bank groups, in both the swizzled read and the swizzled write: q picks the pixel
+// quad (8 * (p / 8) + q) and the channel quad sigma(q) ^ v, v = (thread / 8) % 8.
+template <int BN>
+__device__ __forceinline__ void transpose_g(const unsigned char* gs, unsigned char* t, int ct) {
+  using Cf = Cfg<BN>;
+#pragma unroll
+  for (int r = 0; r < Cf::BLOCKS / 256; ++r) {
+    const int u = ct + 256 * r;
+    const int q = u & 7, v = (u >> 3) & 7, rest = u >> 6;
+    const int pq = 8 * (rest % (BP / 32)) + q, bx = rest / (BP / 32);
+    const int j = ((((q >> 1) & 3) | ((q & 1) << 2)) ^ v);
+    const int e = q & 1, p0 = 8 * (pq >> 1) + e;
+    uint32_t in[4][4];  // [pixel][output channel]
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int p = p0 + 2 * i;
+      const uint4 row = *reinterpret_cast<const uint4*>(gs + bx * SUB_BYTES + p * 128 +
+                                                        ((j ^ (p & 7)) << 4));
+      in[i][0] = jp::round_tf32(row.x);
+      in[i][1] = jp::round_tf32(row.y);
+      in[i][2] = jp::round_tf32(row.z);
+      in[i][3] = jp::round_tf32(row.w);
+    }
+    unsigned char* blk = t + (pq >> 3) * (BN * 128);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int o = 32 * bx + 4 * j + i;
+      *reinterpret_cast<uint4*>(blk + o * 128 + (((pq & 7) ^ (o & 7)) << 4)) =
+          make_uint4(in[0][i], in[1][i], in[2][i], in[3][i]);
+    }
+  }
+}
+
+template <int BN>
+__global__ void __launch_bounds__(THREADS, 1)
+wgrad_f32_tf32_wgmma(const __grid_constant__ CUtensorMap xmap,
+                     const __grid_constant__ CUtensorMap gmap,
+                     const __grid_constant__ CUtensorMap xquad,
+                     const __grid_constant__ CUtensorMap gchunks, float* __restrict__ partial,
+                     int c_rows, int o_cols, int O, int pad, int box_w, int box_h, int tiles_x,
+                     int tiles_y, int tiles, int tiles_per_split, int kchunks, int xpairs,
+                     int flush_tiles) {
+  using Cf = Cfg<BN>;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = jp::align1024(smem_raw);
+  unsigned char* tbuf = smem + Cf::STAGES * Cf::STAGE_BYTES;
+  uint64_t* full = reinterpret_cast<uint64_t*>(tbuf + 2 * Cf::T_BYTES);
+  uint64_t* empty = full + Cf::STAGES;
+
+  const bf16k::Items it = bf16k::block_items(blockIdx.x, kchunks, xpairs);
+  const int n_items = it.n;
+  const int n0 = blockIdx.y * BN;
+  // All of g's boxes in one load where the output tile is whole 32-channel chunks.
+  const bool g_whole = n0 + BN <= O;
+  const int split = blockIdx.z;
+  const int t_begin = split * tiles_per_split;
+  const int ksteps = max(0, min(tiles, t_begin + tiles_per_split) - t_begin);
+  const int wg = threadIdx.x / 128;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < Cf::STAGES; ++s) {
+      jp::mbar_init(&full[s], 1);
+      jp::mbar_init(&empty[s], 8);  // every consumer warp, once it has read the stage
+    }
+    jp::fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (wg == 2) {
+    jp::setmaxnreg_dec<40>();
+    if (threadIdx.x == 256) {
+      for (int i = 0; i < ksteps; ++i) {
+        const int s = i % Cf::STAGES;
+        if (i >= Cf::STAGES) jp::mbar_wait(&empty[s], ((i / Cf::STAGES) - 1) & 1);
+        const int t = t_begin + i;
+        const int tx = t % tiles_x, ty = (t / tiles_x) % tiles_y, b = t / (tiles_x * tiles_y);
+        const int ox0 = tx * box_w, oy0 = ty * box_h;
+        unsigned char* st = smem + s * Cf::STAGE_BYTES;
+        jp::mbar_expect_tx(&full[s], (2 * n_items + Cf::G_SUBS) * SUB_BYTES);
+        if (it.paired) {  // the four 32-channel boxes of one tap's two whole 64-channel chunks
+          const int ky = it.tap[0] / 3, kx = it.tap[0] - 3 * ky;
+          jp::tma_load_5d(st, &xquad, &full[s], 0, ox0 + kx - pad, oy0 + ky - pad,
+                          2 * it.chunk[0], b);
+        } else {
+          for (int w = 0; w < n_items; ++w) {
+            const int ky = it.tap[w] / 3, kx = it.tap[w] - 3 * ky;
+            for (int h = 0; h < 2; ++h)
+              jp::tma_load_4d(st + w * X_BYTES + h * SUB_BYTES, &xmap, &full[s],
+                              64 * it.chunk[w] + 32 * h, ox0 + kx - pad, oy0 + ky - pad, b);
+          }
+        }
+        if (g_whole) {
+          jp::tma_load_5d(st + 2 * X_BYTES, &gchunks, &full[s], 0, ox0, oy0, n0 / 32, b);
+        } else {
+          for (int j = 0; j < Cf::G_SUBS; ++j)
+            jp::tma_load_4d(st + 2 * X_BYTES + j * SUB_BYTES, &gmap, &full[s], n0 + 32 * j,
+                            ox0, oy0, b);
+        }
+      }
+    }
+    return;
+  }
+  // Consumers. Both warpgroups transpose g (half the blocks each) and multiply, whether or not
+  // they own an item (a warpgroup past n_items multiplies what its x boxes held before and
+  // stores nothing: a wgmma under a branch that ptxas cannot prove uniform is serialized).
+  // Step i's wgmma reads T buffer i % 2 and A fragments in registers; while it runs, the
+  // warpgroups transpose step i + 1's g into the other buffer, then wait for it, meet at a
+  // barrier (both transposes written, both of step i's wgmma done with their buffer), load
+  // step i + 1's A fragments and release its stage.
+  jp::setmaxnreg_inc<232>();
+  const int ct = threadIdx.x, warp = (ct % 128) / 32, lane = ct % 32;
+  float acc[BN / 2], rsum[BN / 2];
+#pragma unroll
+  for (int i = 0; i < BN / 2; ++i) acc[i] = rsum[i] = 0.0f;
+  jp::fence_accumulator(acc);
+  // A: rows are the item's channels, 16 * warp + lane / 4 and that + 8, both in box warp / 2;
+  // columns k = lane % 4 and k + 4 of an 8-pixel slab are its pixels 2k and 2k + 1 (the K
+  // order of `transpose_g`). Element (pixel p, channel c) of a box lies at p * 128 +
+  // (((c / 4) ^ (p % 8)) * 16) + (c % 4) * 4; p % 8 is 2k or 2k + 1 in every slab.
+  const int cr = 16 * (warp & 1) + lane / 4, pk = 2 * (lane & 3);
+  const int a_off[4] = {
+      pk * 128 + (((cr >> 2) ^ pk) << 4) + (cr & 3) * 4,
+      pk * 128 + ((((cr + 8) >> 2) ^ pk) << 4) + (cr & 3) * 4,
+      (pk + 1) * 128 + (((cr >> 2) ^ (pk + 1)) << 4) + (cr & 3) * 4,
+      (pk + 1) * 128 + ((((cr + 8) >> 2) ^ (pk + 1)) << 4) + (cr & 3) * 4};
+  const unsigned char* x_item = smem + wg * X_BYTES + (warp >> 1) * SUB_BYTES;
+  uint32_t a[BP / 8][4];
+  auto load_a = [&](int s) {
+    const unsigned char* xs = x_item + s * Cf::STAGE_BYTES;
+#pragma unroll
+    for (int kk = 0; kk < BP / 8; ++kk)
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        a[kk][j] = jp::round_tf32(*reinterpret_cast<const uint32_t*>(xs + 1024 * kk + a_off[j]));
+  };
+  auto stage_g = [&](int s) { return smem + s * Cf::STAGE_BYTES + 2 * X_BYTES; };
+  const uint32_t t_base = jp::smem_u32(tbuf);
+
+  if (ksteps > 0) {
+    jp::mbar_wait(&full[0], 0);
+    transpose_g<BN>(stage_g(0), tbuf, ct);
+    jp::fence_proxy_async();
+    jp::consumers_sync();
+    load_a(0);
+    if (lane == 0) jp::mbar_arrive(&empty[0]);
+  }
+  for (int i = 0; i < ksteps; ++i) {
+    const uint32_t tb = t_base + (i & 1) * Cf::T_BYTES;
+    jp::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < BP / 8; ++kk)  // 8 pixels (32 bytes of a T row) a wgmma
+      jp::wgmma_m64k8_tf32<BN>(
+          acc, a[kk], jp::sw128_desc(tb + (kk >> 2) * (BN * 128) + 32 * (kk & 3), 16, 1024));
+    jp::wgmma_commit();
+    const bool next = i + 1 < ksteps;
+    const int sn = (i + 1) % Cf::STAGES;
+    if (next) {
+      jp::mbar_wait(&full[sn], ((i + 1) / Cf::STAGES) & 1);
+      transpose_g<BN>(stage_g(sn), tbuf + ((i + 1) & 1) * Cf::T_BYTES, ct);
+    }
+    jp::wgmma_wait<0>();
+#pragma unroll
+    for (int kk = 0; kk < BP / 8; ++kk) jp::fence_operand(a[kk]);
+    jp::fence_accumulator(acc);
+    if ((i + 1) % flush_tiles == 0 && next) {
+#pragma unroll
+      for (int j = 0; j < BN / 2; ++j) {
+        rsum[j] += acc[j];
+        acc[j] = 0.0f;
+      }
+      jp::fence_accumulator(acc);
+    }
+    if (next) {
+      jp::fence_proxy_async();
+      jp::consumers_sync();
+      load_a(sn);
+      if (lane == 0) jp::mbar_arrive(&empty[sn]);
+    }
+  }
+  if (wg < n_items) {
+#pragma unroll
+    for (int j = 0; j < BN / 2; ++j) acc[j] = rsum[j] + acc[j];
+    // Rows are the item's 64 channels, columns BN output channels.
+    const int r = warp * 16 + lane / 4;
+    bf16k::store_tile<BN>(acc, partial + ((size_t)(split * 9 + it.tap[wg]) * c_rows +
+                                          64 * it.chunk[wg] + r) * o_cols + n0,
+                          o_cols);
+  }
+}
+
+template <int BN>
+cudaError_t launch(const CUtensorMap& xmap, const CUtensorMap& gmap, const CUtensorMap& xquad,
+                   const CUtensorMap& gchunks, float* partial, int B, int Ho, int Wo, int O,
+                   int pad, int box_w, int box_h, int kchunks, int xpairs, int splits,
+                   int tiles_per_split, int flush_tiles, cudaStream_t stream) {
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      wgrad_f32_tf32_wgmma<BN>, cudaFuncAttributeMaxDynamicSharedMemorySize, Cfg<BN>::SMEM);
+  if (attr != cudaSuccess) return attr;
+  const int tiles_x = (Wo + box_w - 1) / box_w, tiles_y = (Ho + box_h - 1) / box_h;
+  const int tiles = B * tiles_x * tiles_y;
+  if ((long long)splits * tiles_per_split < tiles || (long long)(splits - 1) * tiles_per_split >= tiles)
+    return cudaErrorInvalidValue;
+  const int o_tiles = (O + BN - 1) / BN;
+  const int left = kchunks - 2 * xpairs;
+  const dim3 grid(9 * xpairs + (9 * left + 1) / 2, o_tiles, splits);
+  wgrad_f32_tf32_wgmma<BN><<<grid, THREADS, Cfg<BN>::SMEM, stream>>>(
+      xmap, gmap, xquad, gchunks, partial, 64 * kchunks, o_tiles * BN, O, pad, box_w, box_h,
+      tiles_x, tiles_y, tiles, tiles_per_split, kchunks, xpairs, flush_tiles);
+  return cudaGetLastError();
+}
+
+}  // namespace tf32k
+
+// ---------------------------------------------------------------------------------
 // fp32: CUDA cores, exact fp32 products
 // ---------------------------------------------------------------------------------
 
@@ -452,7 +721,7 @@ extern "C" int jp_conv3x3_wgrad_bf16(const void* x, const void* g, float* partia
       (reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(g)) % 16 != 0)
     return static_cast<int>(cudaErrorInvalidValue);
   // x and g as 4-D maps, read a box an item or 64 output channels, and as pair maps
-  // (`encode_nhwc_pair_map`), read two whole chunks a box where there are any (else the 4-D
+  // (`encode_nhwc_chunk_map`), read two whole chunks a box where there are any (else the 4-D
   // map stands in, unread). xpairs: the pairs of whole 64-channel chunks of x a tap.
   const int xpairs = (C / 64) / 2;
   CUtensorMap xmap, gmap;
@@ -461,9 +730,9 @@ extern "C" int jp_conv3x3_wgrad_bf16(const void* x, const void* g, float* partia
     return static_cast<int>(cudaErrorInvalidValue);
   CUtensorMap xpair = xmap, gpair = gmap;
   if ((xpairs > 0 &&
-       !jp::encode_nhwc_pair_map(&xpair, x, B, H, W, C, sx_w, sx_h, sx_b, box_w, box_h)) ||
+       !jp::encode_nhwc_chunk_map(&xpair, x, B, H, W, C, sx_w, sx_h, sx_b, box_w, box_h, 2)) ||
       (bn == 128 && O >= 128 &&
-       !jp::encode_nhwc_pair_map(&gpair, g, B, Ho, Wo, O, sg_w, sg_h, sg_b, box_w, box_h)))
+       !jp::encode_nhwc_chunk_map(&gpair, g, B, Ho, Wo, O, sg_w, sg_h, sg_b, box_w, box_h, 2)))
     return static_cast<int>(cudaErrorInvalidValue);
   const int kchunks = (C + 63) / 64;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -471,6 +740,48 @@ extern "C" int jp_conv3x3_wgrad_bf16(const void* x, const void* g, float* partia
   switch (bn) {
     case 64: err = bf16k::launch<64>(xmap, gmap, xpair, gpair, partial, B, Ho, Wo, O, pad, box_w, box_h, kchunks, xpairs, splits, tiles_per_split, flush_tiles, s); break;
     case 128: err = bf16k::launch<128>(xmap, gmap, xpair, gpair, partial, B, Ho, Wo, O, pad, box_w, box_h, kchunks, xpairs, splits, tiles_per_split, flush_tiles, s); break;
+    default: err = cudaErrorInvalidValue;
+  }
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int o_cols = bn * ((O + bn - 1) / bn);
+  return static_cast<int>(reduce(partial, out, C, O, 64 * kchunks, o_cols, splits, s));
+}
+
+// TF32: as the bf16 entry, on fp32 x and g (strides multiples of 4 elements), tiles of
+// box_w x box_h = 64 pixels; the kernel rounds both operands to TF32 itself (`round_tf32`).
+extern "C" int jp_conv3x3_wgrad_tf32(const void* x, const void* g, float* partial, float* out,
+                                     int B, int H, int W, int C, long long sx_w, long long sx_h,
+                                     long long sx_b, int O, long long sg_w, long long sg_h,
+                                     long long sg_b, int pad, int box_w, int box_h, int bn,
+                                     int splits, int tiles_per_split, int flush_tiles,
+                                     void* stream) {
+  const int Ho = H + 2 * pad - 2, Wo = W + 2 * pad - 2;
+  if (C < 1 || O < 1 || Ho <= 0 || Wo <= 0 || !jp::tma_strides(sx_w, sx_h, sx_b, 4) ||
+      !jp::tma_strides(sg_w, sg_h, sg_b, 4) || box_w * box_h != tf32k::BP || box_w > 256 ||
+      box_h > 256 || splits < 1 || tiles_per_split < 1 || flush_tiles < 1 ||
+      (reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(g)) % 16 != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  // x and g as 4-D maps, read a 32-channel box at a time, and as chunk maps: x four whole
+  // 32-channel chunks a load (a block's two items where they are one tap's adjacent whole
+  // 64-channel chunks), g bn / 32 (a whole output tile). Where there are none the 4-D map
+  // stands in, unread.
+  const int xpairs = (C / 64) / 2;
+  CUtensorMap xmap, gmap;
+  if (!jp::encode_nhwc_map(&xmap, x, B, H, W, C, sx_w, sx_h, sx_b, box_w, box_h, true) ||
+      !jp::encode_nhwc_map(&gmap, g, B, Ho, Wo, O, sg_w, sg_h, sg_b, box_w, box_h, true))
+    return static_cast<int>(cudaErrorInvalidValue);
+  CUtensorMap xquad = xmap, gchunks = gmap;
+  if ((xpairs > 0 && !jp::encode_nhwc_chunk_map(&xquad, x, B, H, W, C, sx_w, sx_h, sx_b, box_w,
+                                                box_h, 4, true)) ||
+      (O >= bn && !jp::encode_nhwc_chunk_map(&gchunks, g, B, Ho, Wo, O, sg_w, sg_h, sg_b, box_w,
+                                             box_h, bn / 32, true)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int kchunks = (C + 63) / 64;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t err;
+  switch (bn) {
+    case 64: err = tf32k::launch<64>(xmap, gmap, xquad, gchunks, partial, B, Ho, Wo, O, pad, box_w, box_h, kchunks, xpairs, splits, tiles_per_split, flush_tiles, s); break;
+    case 128: err = tf32k::launch<128>(xmap, gmap, xquad, gchunks, partial, B, Ho, Wo, O, pad, box_w, box_h, kchunks, xpairs, splits, tiles_per_split, flush_tiles, s); break;
     default: err = cudaErrorInvalidValue;
   }
   if (err != cudaSuccess) return static_cast<int>(err);

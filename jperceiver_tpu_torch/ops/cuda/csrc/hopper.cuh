@@ -104,6 +104,13 @@ __device__ __forceinline__ void tma_load_5d(void* dst, const CUtensorMap* map, u
       : "memory");
 }
 
+// Make this thread's ordinary shared-memory stores visible to the async proxy, through which
+// wgmma reads its shared-memory operands: a tile written by threads (K4's transposed cotangent)
+// needs it before the barrier that lets wgmma read the tile.
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+}
+
 // Synchronise the threads of the two consumer warpgroups (barrier 0 is __syncthreads).
 __device__ __forceinline__ void consumers_sync() {
   asm volatile("bar.sync 1, 256;" ::: "memory");
@@ -266,7 +273,7 @@ __device__ __forceinline__ void wgmma_m64k16(float (&d)[N / 2], uint64_t da, uin
   }
 }
 
-// TF32 (K3's float32 path): fp32 rounded to nearest, ties to even, at 10 mantissa bits --
+// TF32 (K3's and K4's float32 paths): fp32 rounded to nearest, ties to even, at 10 mantissa bits --
 // the 13 low bits cleared -- with the integer add-and-mask of the port's `round_tf32`
 // (`ops/cuda/conv3x3.py`), bit for bit, NaN and infinities included. Fed unrounded fp32 bits,
 // the tensor cores would drop the low bits: a rounding toward zero.
@@ -464,18 +471,20 @@ inline bool encode_nhwc_map(CUtensorMap* map, const void* base, int B, int H, in
   return encode_map(map, base, 4, dims, strides, box, f32);
 }
 
-// The same activation as a 5-D map (64 channels, W, H, C / 64 chunks, B), the chunks 128
-// bytes apart, read in boxes of (64, box_w, box_h, 2, 1): one load brings two adjacent
-// 64-channel chunks of the same pixels, the first chunk's box_w x box_h rows and then the
-// second's, as two 4-D boxes would. Only whole chunks are in the map (channels past the last
-// whole chunk are not zero-filled by it).
-inline bool encode_nhwc_pair_map(CUtensorMap* map, const void* base, int B, int H, int W, int C,
-                                 long long sw, long long sh, long long sb, int box_w,
-                                 int box_h) {
-  const uint64_t dims[5] = {64u, (uint64_t)W, (uint64_t)H, (uint64_t)(C / 64), (uint64_t)B};
-  const uint64_t strides[4] = {2ull * sw, 2ull * sh, 128ull, 2ull * sb};
-  const uint32_t box[5] = {64u, (uint32_t)box_w, (uint32_t)box_h, 2u, 1u};
-  return encode_map(map, base, 5, dims, strides, box);
+// The same activation as a 5-D map (one 128-byte row of channels -- 64 bf16 or, with `f32`, 32
+// fp32 --, W, H, whole chunks of that row, B), the chunks 128 bytes apart, read in boxes of
+// (row, box_w, box_h, `chunks`, 1): one load brings `chunks` adjacent chunks of the same pixels,
+// the first chunk's box_w x box_h rows, then the second's, and so on, as that many 4-D boxes
+// would. Only whole chunks are in the map (channels past the last whole chunk are not
+// zero-filled by it).
+inline bool encode_nhwc_chunk_map(CUtensorMap* map, const void* base, int B, int H, int W, int C,
+                                  long long sw, long long sh, long long sb, int box_w, int box_h,
+                                  int chunks, bool f32 = false) {
+  const uint64_t e = f32 ? 4 : 2, row = 128 / e;
+  const uint64_t dims[5] = {row, (uint64_t)W, (uint64_t)H, (uint64_t)C / row, (uint64_t)B};
+  const uint64_t strides[4] = {e * sw, e * sh, 128ull, e * sb};
+  const uint32_t box[5] = {(uint32_t)row, (uint32_t)box_w, (uint32_t)box_h, (uint32_t)chunks, 1u};
+  return encode_map(map, base, 5, dims, strides, box, f32);
 }
 
 // Whether the strides suit a tensor map: positive multiples of 16 bytes, `per16` elements

@@ -16,9 +16,11 @@ Shapes: the nine K3 site shapes of the 1024^2 step (channels as they are,
 extents / 8), each as the forward and as the data-grad (pad 2 - pad, the
 channels swapped), and small shapes whose extents leave tail tiles, at pads
 0, 1 and 2, with B = 2. The K4 replay is also held to the JAX package's
-`_wgrad` on the same numpy inputs. K3's TF32 plan is replayed on operands
-rounded as the TF32 kernel rounds them, against the plain version of the
-rounded operands.
+`_wgrad` on the same numpy inputs. K3's and K4's TF32 plans are replayed
+on operands rounded as the TF32 kernels round them, against the plain
+version of the rounded operands; K4's reads its 64-channel items and
+output tiles as boxes of 32 channels (one 128-byte row of fp32), on tiles
+of 64 pixels.
 """
 
 import functools
@@ -101,13 +103,15 @@ def replay_k3(x, w, bias, pad, plan):
 def replay_k4(x, g, pad, plan):
     """K4 computed box by box: per split, per block along the grid's x (its
     one or two (tap, chunk) items, `plan.k4_items`) and output-channel
-    tile, the split's 128-pixel tiles in order, summed `flush_tiles` at a
+    tile, the split's tiles (128 pixels in bf16, 64 in TF32) in order, each
+    box a 128-byte row of channels, summed `flush_tiles` at a
     time and each sum added into a second sum, which is the split's
     partial; then `sum_splits`: the partials added over the splits in
     order, into (O, C, 3, 3). A block's two x boxes come in one load only
     for one tap's adjacent whole chunks (the pair map has no zero fill past
     C), and each item is some block's exactly once."""
     xs, gs = _nhwc(x, plan.c_store), _nhwc(g, plan.o_store)
+    width = 128 // plan.elem  # channels of a box row: 64 in bf16, 32 in fp32
     blocks = [plan.k4_items(j) for j in range(-(-9 * plan.kchunks // 2))]
     items = [item for _, its in blocks for item in its]
     assert sorted(items) == [(tap, k) for tap in range(9) for k in range(plan.kchunks)]
@@ -129,11 +133,13 @@ def replay_k4(x, g, pad, plan):
                     acc = torch.zeros(_CHUNK, plan.bn)
                     for i, t in enumerate(t_range):
                         b, oy0, ox0 = plan.tile_origin(t)
-                        xb = _box(xs, plan.box(t, tap, chunk), _CHUNK, plan.box_w, plan.box_h,
-                                  plan.c)
-                        gb = torch.cat([_box(gs, (n0 + j, ox0, oy0, b), _CHUNK, plan.box_w,
+                        c0, x0, y0, _ = plan.box(t, tap, chunk)
+                        xb = torch.cat([_box(xs, (c0 + j, x0, y0, b), width, plan.box_w,
+                                             plan.box_h, plan.c)
+                                        for j in range(0, _CHUNK, width)], 1)
+                        gb = torch.cat([_box(gs, (n0 + j, ox0, oy0, b), width, plan.box_w,
                                              plan.box_h, plan.o)
-                                        for j in range(0, plan.bn, _CHUNK)], 1)
+                                        for j in range(0, plan.bn, width)], 1)
                         acc += xb.T @ gb
                         # The accumulator goes into the second sum every
                         # flush_tiles tiles and after the last.
@@ -255,6 +261,31 @@ def test_k4_plan_replay_matches_plain(b, c, o, h, w, pad):
 
 
 @pytest.mark.parametrize("b,c,o,h,w,pad", list(_k4_cases()))
+def test_k4_tf32_plan_replay_matches_plain(b, c, o, h, w, pad):
+    """K4's TF32 plan (fp32 operands): tiles of 64 pixels, the bf16 plan's
+    output-tile width and items, boxes of 32 channels, the second sum every
+    K4_CHAIN wgmma of 8 pixels. The replay rounds x and the cotangent as
+    the kernel does, and is held to the plain version of the rounded
+    operands."""
+    plan = k4_plan(b, h, w, c, o, pad, elem=4)
+    bf16 = k4_plan(b, h, w, c, o, pad)
+    assert plan.box_w * plan.box_h == 64 and plan.elem == 4 and plan.chunk == 64
+    assert (plan.bn, plan.kchunks, plan.xpairs) == (bf16.bn, bf16.kchunks, bf16.xpairs)
+    assert plan.c_store % 4 == 0 and (plan.c_store == c or plan.c_store == -(-c // 32) * 32)
+    assert (plan.splits - 1) * plan.tiles_per_split < plan.tiles <= plan.splits * plan.tiles_per_split
+    assert 1 <= plan.flush_tiles <= plan.tiles_per_split
+    assert plan.flush_tiles * 64 <= K4_CHAIN * 8
+    rng = np.random.default_rng(c + o + h + pad + 2)
+    x = round_tf32(torch.from_numpy(rng.standard_normal((b, c, h, w)).astype(np.float32)))
+    g = round_tf32(torch.from_numpy(
+        rng.standard_normal((b, o, h + 2 * pad - 2, w + 2 * pad - 2)).astype(np.float32)))
+    dw = replay_k4(x, g, pad, plan)
+    ref = conv3x3_wgrad_plain(x, g, pad)
+    assert dw.shape == ref.shape and torch.isfinite(dw).all()
+    assert (dw - ref).abs().max().item() <= 1e-5 * ref.abs().max().item()
+
+
+@pytest.mark.parametrize("b,c,o,h,w,pad", list(_k4_cases()))
 def test_k4_plan_replay_matches_jax_wgrad(b, c, o, h, w, pad):
     """The same replay against the JAX package's `_wgrad`
     (`jperceiver_tpu/ops/pallas/conv3x3.py:206-220`, XLA on the CPU in
@@ -316,6 +347,26 @@ def test_plans_at_the_step_sites():
     assert (q.box_w, q.box_h, q.splits, q.tiles_per_split, q.xpairs) == (64, 2, 3, 11, 2)
     q = k4_plan(1, 128, 128, 128, 128, 1)  # 9 blocks a split: 13 splits in one wave
     assert (q.bn, q.splits, q.tiles_per_split) == (128, 13, 10)
+    # K4 in TF32: tiles of 64 pixels (the same bytes a step), so twice the
+    # tiles, the bf16 widths and items, the split model unchanged (on the
+    # H100 its choice was the fastest split count, or within 1% of it, at
+    # every site at B = 1 and 3: `chip_conv_sweep.py --k4-tf32`), and the
+    # second sum every 2 tiles (16 wgmma of 8 pixels); the operands are
+    # read where they lie, the 513-channel concat in its 544-wide copy.
+    q = k4_plan(1, 258, 258, 513, 256, 0, elem=4)
+    assert (q.box_w, q.box_h, q.bn, q.c_store, q.splits, q.tiles_per_split) == (
+        64, 1, 128, 544, 8, 128)
+    assert q.flush_tiles * 64 == K4_CHAIN * 8 and q.tiles == 1024 and q.xpairs == 4
+    q = k4_plan(3, 258, 258, 513, 256, 0, elem=4)
+    assert (q.splits, q.tiles_per_split) == (8, 384)
+    q = k4_plan(1, 66, 66, 513, 256, 0, elem=4)
+    assert (q.box_w, q.box_h, q.splits, q.tiles_per_split) == (64, 1, 3, 22)
+    q = k4_plan(1, 256, 256, 64, 64, 1, elem=4)
+    assert (q.bn, q.splits, q.tiles_per_split, q.c_store) == (64, 26, 40, 64)
+    q = k4_plan(3, 256, 256, 64, 64, 1, elem=4)
+    assert (q.splits, q.tiles_per_split) == (26, 119)
+    q = k4_plan(1, 128, 128, 128, 128, 1, elem=4)
+    assert (q.bn, q.splits, q.tiles_per_split) == (128, 14, 19)
 
 
 @pytest.mark.parametrize("b,c,o,h,w,pad", [(1, 64, 64, 2, 2, 0), (0, 64, 64, 8, 8, 1),

@@ -1,26 +1,27 @@
-"""K3's TF32 path on the CPU: which kernel a call takes, and the rounding
-the path shares with cuDNN's fp32 convolution.
+"""K3's and K4's TF32 paths on the CPU: which kernel a call takes, and the
+rounding the paths share with cuDNN's fp32 convolution.
 
-A float32 K3 call on the card runs the TF32 kernel where
+A float32 K3 or K4 call on the card runs the TF32 kernel where
 `torch.backends.cudnn.allow_tf32` is set and the exact CUDA-core kernel
 otherwise; bf16 keeps its kernel and the CPU its plain version
-(`k3_path`). The TF32 kernel rounds its activation to nearest, ties to
+(`k3_path`, `k4_path`: one rule). The TF32 kernel rounds its activation to nearest, ties to
 even, at 10 mantissa bits, and the wrapper rounds the weight the same way
 with `round_tf32`: the benchmark's reference rounds every convolution's
 operands with `portbench/reference/model.py::_tf32`, and the two must
-give the same bits. The kernels themselves are held on the card by
-`test_torch_port_k3_tf32_cuda.py`.
+give the same bits; K4's kernel rounds both its operands so. The kernels
+themselves are held on the card by `test_torch_port_k3_tf32_cuda.py` and
+`test_torch_port_k4_tf32_cuda.py`.
 """
 
 import numpy as np
 import pytest
 import torch
 
-from jperceiver_tpu_torch.ops.cuda.conv3x3 import _weight_operand, k3_path, round_tf32
+from jperceiver_tpu_torch.ops.cuda.conv3x3 import _weight_operand, k3_path, k4_path, round_tf32
 from portbench.reference.model import _tf32
 
 
-@pytest.mark.parametrize("device,dtype,allow_tf32,path", [
+_PATHS = [
     ("cuda", torch.float32, True, "tf32"),
     ("cuda", torch.float32, False, "f32"),
     ("cuda", torch.bfloat16, True, "bf16"),
@@ -29,15 +30,31 @@ from portbench.reference.model import _tf32
     ("cpu", torch.float32, False, "plain"),
     ("cpu", torch.bfloat16, True, "plain"),
     ("cpu", torch.float64, True, "plain"),
-])
+]
+
+
+@pytest.mark.parametrize("device,dtype,allow_tf32,path", _PATHS)
 def test_k3_path(device, dtype, allow_tf32, path):
     assert k3_path(device, dtype, allow_tf32) == path
+
+
+@pytest.mark.parametrize("device,dtype,allow_tf32,path", _PATHS)
+def test_k4_path(device, dtype, allow_tf32, path):
+    """K4 follows K3's rule: a float32 weight gradient takes TF32 exactly
+    where the same conv's forward and data-grad do."""
+    assert k4_path(device, dtype, allow_tf32) == path
 
 
 @pytest.mark.parametrize("dtype", [torch.float16, torch.float64])
 def test_k3_path_refuses_other_dtypes_on_the_card(dtype):
     with pytest.raises(TypeError):
         k3_path("cuda", dtype, True)
+
+
+@pytest.mark.parametrize("dtype", [torch.float16, torch.float64])
+def test_k4_path_refuses_other_dtypes_on_the_card(dtype):
+    with pytest.raises(TypeError):
+        k4_path("cuda", dtype, True)
 
 
 def test_k3_path_reads_the_flag_at_the_call():

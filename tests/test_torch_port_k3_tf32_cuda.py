@@ -100,7 +100,7 @@ def test_k3_tf32_forward_and_data_grad(cuda, bsz, c, o, h, w, pad):
     y = conv3x3_fwd(xg, wt, b, pad)
     y.backward(gy)
     torch.cuda.synchronize()
-    assert tf32_launch_counts() == {"conv3x3": 1, "conv3x3_dgrad": 1}
+    assert tf32_launch_counts() == {"conv3x3": 1, "conv3x3_dgrad": 1, "conv3x3_wgrad": 0}
     assert launch_counts()["conv3x3"] == launch_counts()["conv3x3_dgrad"] == 1
     _hold(y.detach(), x, wt, b, pad)
     # The data-grad: K3 on the cotangent at pad 2 - pad with the flipped,
@@ -119,7 +119,7 @@ def test_k3_exact_path_without_tf32(cuda, bsz, c, o, h, w, pad):
     reset_launch_counts()
     y = conv3x3_fwd(x, wt, b, pad)
     dx = k3._conv(gy, wt.flip(2, 3).transpose(0, 1), None, 2 - pad, "conv3x3_dgrad")
-    assert tf32_launch_counts() == {"conv3x3": 0, "conv3x3_dgrad": 0}
+    assert tf32_launch_counts() == {"conv3x3": 0, "conv3x3_dgrad": 0, "conv3x3_wgrad": 0}
 
     def f32k(x, w, b, pad):
         cp = -(-x.shape[1] // 32) * 32
@@ -160,10 +160,10 @@ def test_k3_tf32_captured_replay_is_eager(cuda, bsz, c, o, h, w, pad):
     with launches.capture(), torch.cuda.graph(graph):
         out = body()
     assert launches.per_replay_tf32 == {"conv3x3": 1, "conv3x3_dgrad": 1}
-    assert tf32_launch_counts() == {"conv3x3": 0, "conv3x3_dgrad": 0}
+    assert tf32_launch_counts() == {"conv3x3": 0, "conv3x3_dgrad": 0, "conv3x3_wgrad": 0}
     for n in (1, 2):
         graph.replay()
         launches.replayed()
         torch.cuda.synchronize()
         assert torch.equal(out[0], eager[0]) and torch.equal(out[1], eager[1])
-        assert tf32_launch_counts() == {"conv3x3": n, "conv3x3_dgrad": n}
+        assert tf32_launch_counts() == {"conv3x3": n, "conv3x3_dgrad": n, "conv3x3_wgrad": 0}
